@@ -9,6 +9,7 @@ kernels live in ``csrc/`` and build with ``nvcc`` at first use.
 
 from .embed.driver import embed, embed_graph, default_base_iterations
 from .forceatlas.flat import compute_forces, fa_step, force_atlas
+from .forceatlas.tiled import force_atlas_tiled, prepare_tiled
 from .graph.csr import Graph, from_canonical_coo, from_coo, from_edges
 from .graph.io import FORMATS, read_graph, write_coords
 from .partition.hierarchy import HierarchyResult, partition_hierarchy

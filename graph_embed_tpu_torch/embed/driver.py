@@ -25,6 +25,7 @@ import torch
 from ..forceatlas.flat import force_atlas
 from ..forceatlas.multilevel_tiled import prepare_refine, refine_level_tiled
 from ..graph.csr import Graph
+from ..ops import segment
 from ..partition.hierarchy import partition_hierarchy
 from ..partition.interpolation import Partition
 from ..utils.params import ForceAtlasParams, MultilevelFAParams
@@ -59,14 +60,15 @@ def validate_hierarchy(graphs: list[Graph], parts: list[Partition]) -> None:
 
 def project_to_levels(coords0: torch.Tensor, parts: list[Partition]):
     """[c_0 ... c_k]: c_0 = coords0 and c_{l+1}[a] = the mean of c_l over
-    aggregate a (the warm-start chain)."""
+    aggregate a (the warm-start chain).  Each aggregate's sum runs over
+    its members in vertex order (``ops.segment``: kernel A on the card)."""
     cs = [coords0]
     for p in parts:
-        sizes = torch.bincount(p.vertex_to_agg, minlength=p.num_aggs)
-        mean = torch.zeros((p.num_aggs, coords0.shape[1]),
-                           dtype=coords0.dtype, device=coords0.device)
-        mean.index_add_(0, p.vertex_to_agg, cs[-1])
-        cs.append(mean / torch.clamp(sizes, min=1)[:, None].to(coords0.dtype))
+        csr = segment.segment_csr(p.vertex_to_agg_numpy(), p.num_aggs,
+                                  device=coords0.device)
+        sizes = (csr.indptr[1:] - csr.indptr[:-1]).to(coords0.dtype)
+        mean = segment.segment_sum(cs[-1], csr)
+        cs.append(mean / torch.clamp(sizes, min=1)[:, None])
     return cs
 
 

@@ -5,8 +5,10 @@ One iteration reads coords and writes coords in separate phases
 (forces -> swing/speed -> displacement), a Python loop over
 ``fa_step``.  Plain-FA attraction is ``attract * (A_c x - deg_c * x)`` with
 the folded constants c_e (forces.fold_edge_weights) in float32: on a CUDA
-device it runs through kernel A, which is row-owned and deterministic where
-``index_add_`` would use atomics.  linlog keeps the per-edge form.
+device it runs through kernel A.  linlog attraction keeps the per-edge
+distance and runs through kernel E over the same CSR.  Both kernels own one
+row per thread and sum in CSR order, so the card's result is bitwise
+repeatable.
 """
 
 from __future__ import annotations
@@ -23,13 +25,11 @@ from . import forces as F
 
 @dataclasses.dataclass(frozen=True)
 class FlatAttraction:
-    """The attraction operator of one graph under one parameter set:
-    the folded-weight CSR and its row sums (plain FA), or the folded
-    per-edge constants (linlog)."""
+    """The attraction operator of one graph under one parameter set: the
+    folded-weight CSR and its row sums (the row sums serve plain FA only)."""
 
     csr: ES.EdgeCSR
     deg_c: torch.Tensor
-    c: torch.Tensor
     attract: float
     eps: float
     linlog: bool
@@ -41,15 +41,13 @@ class FlatAttraction:
         c = F.fold_edge_weights(w, deg[s], use_weights=params.use_weights,
                                 delta=params.delta, nohubs=params.nohubs)
         csr, deg_c = ES.build_csr(s, r, c, g.n, device=g.device)
-        return cls(csr=csr, deg_c=deg_c.to(g.dtype), c=csr.w.to(g.dtype),
-                   attract=params.attract, eps=params.epsilon,
-                   linlog=params.linlog)
+        return cls(csr=csr, deg_c=deg_c.to(g.dtype), attract=params.attract,
+                   eps=params.epsilon, linlog=params.linlog)
 
     def __call__(self, coords: torch.Tensor, g: Graph) -> torch.Tensor:
         if self.linlog:
-            return F.attraction_edges(coords, g.senders, g.receivers, self.c,
-                                      attract=self.attract, eps=self.eps,
-                                      linlog=True)
+            return ES.linlog(coords, self.csr, attract=self.attract,
+                             eps=self.eps)
         return ES.attraction_spmv(coords, self.csr, self.deg_c,
                                   attract=self.attract)
 

@@ -7,7 +7,8 @@ reference citations there, forceatlas.hpp:146-261):
   d clamped below at epsilon;
 * attraction per stored entry with the folded constant c_e of
   ``fold_edge_weights``; under plain FA (no linlog) fa/d = c_e, so the
-  whole term is the SpMV ``attract * (A_c x - deg_c * x)``;
+  whole term is the SpMV ``attract * (A_c x - deg_c * x)``; linlog keeps
+  the distance per entry (both in ops/edge_spmm.py, kernels A and E);
 * gravity toward the origin with magnitude gravity * (deg_i + 1).
 
 The gram and sampled repulsions use full-float32 matmuls: the gram
@@ -94,19 +95,6 @@ def fold_edge_weights(weights, deg_senders, *, use_weights: bool,
     if nohubs:
         c = c / (deg_senders + 1.0)
     return c
-
-
-def attraction_edges(coords, senders, receivers, c, *, attract: float,
-                     eps: float, linlog: bool):
-    """Per-edge attraction with the distance in the magnitude
-    (forceatlas.hpp:169-203): F_i += attract * c_e * g(d)/d * (x_j - x_i),
-    g = log1p under linlog, else g(d) = d."""
-    diff = coords[receivers] - coords[senders]
-    dist = torch.clamp(_norm(diff), min=eps)
-    g = torch.log1p(dist) if linlog else dist
-    per_edge = diff * (attract * c * g / dist)[:, None]
-    out = torch.zeros_like(coords)
-    return out.index_add_(0, senders, per_edge)
 
 
 def gravity_force(coords, deg_p1, gravity: float, *,

@@ -13,7 +13,8 @@ ghost slots after.  Then
 * intra-aggregate attraction is kernel A (``csrc/edge_spmm.cu``) over a
   slot-space CSR whose weights are truncated to bf16 exactly as the
   reference packer does (unit-weight levels take the unit mode);
-* the cut-edge pull is a per-slot vector computed once per level;
+* the cut-edge pull is a per-slot vector computed once per level, its
+  per-vertex sums row-owned over the level's sender CSR (kernel A);
 * the epilogue (center, max-norm, place into the parent ball,
   forceatlas.hpp:539-570) is per-bucket reshapes, so its sums run in a
   fixed order.
@@ -35,7 +36,7 @@ from ..ops import edge_spmm as ES
 from ..partition.interpolation import Partition
 from ..utils.params import MultilevelFAParams
 from . import forces as F
-from .multilevel import external_pull
+from .multilevel import external_pull, sender_csr
 
 # the plain repulsion versions evaluate at most this many pairs at once
 PLAIN_MAX_PAIRS = 1 << 24
@@ -73,6 +74,7 @@ class RefineLayout:
     w_rep: torch.Tensor           # [n_slots] deg_loc + 1, ghosts 0
     csr: ES.EdgeCSR               # intra-aggregate attraction over slots
     deg_w: torch.Tensor           # [n_slots] row sums of csr
+    sender_csr: ES.EdgeCSR        # the level's stored entries by sender
     buckets: tuple
     exact_meta: torch.Tensor      # [ctas, 4] int32 kernel B table
     n: int
@@ -161,7 +163,8 @@ def prepare_refine(g: Graph, part: Partition,
         valid_slot=torch.from_numpy(valid).to(dev),
         deg_loc=torch.from_numpy(deg_loc).to(dev),
         w_rep=torch.from_numpy(w_rep).to(dev),
-        csr=csr, deg_w=deg_w, buckets=tuple(buckets),
+        csr=csr, deg_w=deg_w, sender_csr=sender_csr(g),
+        buckets=tuple(buckets),
         exact_meta=torch.from_numpy(_cta_table(buckets)).to(dev),
         n=n, n_slots=n_slots, num_aggs=m)
 
@@ -408,7 +411,7 @@ def refine_level_tiled(g: Graph, part: Partition, coords_A, r_A, dim: int,
     coords_A = torch.as_tensor(coords_A).to(dev, torch.float32)
     r_A = torch.as_tensor(r_A).to(dev, torch.float32)
     pull_v = external_pull(g, part, coords_A, pull=params.pull,
-                           eps=params.epsilon)
+                           eps=params.epsilon, csr=layout.sender_csr)
     pull_slot = torch.zeros((layout.n_slots, dim), dtype=torch.float32,
                             device=dev)
     pull_slot[layout.slot_of_vertex] = pull_v.to(torch.float32)

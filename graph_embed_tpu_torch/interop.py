@@ -4,6 +4,10 @@ Every function takes plain numpy arrays (what ``Graph.to_coo_numpy()``,
 ``Partition.vertex_to_agg_numpy()`` and ``np.asarray`` give on the JAX
 side) and returns the port's objects, so both packages can compute on the
 same graph, hierarchy and state.  Nothing here imports JAX.
+
+The reference's tiled step keeps its state transposed and padded,
+``[D_PAD, n_pad]`` with zeros beyond ``[:d, :n]``; the port's is row-major
+``[n, d]``.  ``from_transposed`` and ``to_transposed`` carry it across.
 """
 
 from __future__ import annotations
@@ -38,3 +42,23 @@ def hierarchy(graph_coos, assignments, *, dtype=torch.float32,
 def tensor(a, *, dtype=torch.float32, device="cpu") -> torch.Tensor:
     """Coordinates, radii or any other array as a tensor on ``device``."""
     return torch.as_tensor(np.asarray(a), dtype=dtype).to(device)
+
+
+D_PAD = 8  # the reference's coordinate sublane pad (edge_spmm.py D_PAD)
+
+
+def from_transposed(xT, n: int, d: int) -> np.ndarray:
+    """[n, d] float32 rows from a transposed [D_PAD, n_pad] state."""
+    return np.ascontiguousarray(np.asarray(xT)[:d, :n].T, dtype=np.float32)
+
+
+def to_transposed(x, n_pad: int) -> np.ndarray:
+    """The transposed [D_PAD, n_pad] float32 state of [n, d] rows, zero
+    beyond them."""
+    x = np.asarray(x, dtype=np.float32)
+    n, d = x.shape
+    if d > D_PAD or n > n_pad:
+        raise ValueError(f"[{n}, {d}] does not fit [{D_PAD}, {n_pad}]")
+    xT = np.zeros((D_PAD, n_pad), np.float32)
+    xT[:d, :n] = x.T
+    return xT

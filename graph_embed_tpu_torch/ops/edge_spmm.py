@@ -1,4 +1,5 @@
-"""Attraction SpMV: a row-sorted CSR and kernel A (``csrc/edge_spmm.cu``).
+"""Attraction over a row-sorted CSR: kernel A (the SpMV) and kernel E
+(linlog attraction), both in ``csrc/edge_spmm.cu``.
 
 Counterpart of graph_embed_tpu/ops/pallas/edge_spmm.py.  The TPU packs
 edges into (sender block, receiver window) slabs of one-hot matmuls over a
@@ -8,8 +9,14 @@ prep that fixes the arithmetic: weighted rows carry weights truncated
 toward zero to bf16 (the packer's ``wbits & -65536``, edge_spmm.py:581) and
 row sums are taken from those same weights (tiled_row_sums, :1581-1600).
 
-``spmv`` launches kernel A on a CUDA tensor and runs the plain PyTorch
-version on a CPU tensor; there is no fallback between the two.
+Kernel E is the linlog attraction of edge_spmm.py:attraction_tiled
+(:240, body ``_attraction_kernel`` :203): per stored entry the distance,
+``attract * c_e * log1p(d)/d * (x_col - x_row)``, summed per row with the
+folded float32 weights as ``build_edge_tiles`` keeps them (not truncated).
+
+``spmv`` and ``linlog`` launch their kernels on a CUDA tensor and run the
+plain PyTorch versions on a CPU tensor; there is no fallback between the
+two.
 """
 
 from __future__ import annotations
@@ -87,11 +94,16 @@ def build_csr(rows, cols, w, n_rows: int, n_cols: int | None = None, *,
     return csr, torch.from_numpy(deg).to(device)
 
 
+def _rows(csr: EdgeCSR) -> torch.Tensor:
+    """[nnz] row id of every stored entry."""
+    counts = (csr.indptr[1:] - csr.indptr[:-1]).long()
+    return torch.repeat_interleave(
+        torch.arange(csr.n_rows, device=csr.device), counts)
+
+
 def spmv_plain(x: torch.Tensor, csr: EdgeCSR) -> torch.Tensor:
     """Plain PyTorch version of kernel A: y[i] = sum_e w_e x[col_e]."""
-    counts = (csr.indptr[1:] - csr.indptr[:-1]).long()
-    rows = torch.repeat_interleave(
-        torch.arange(csr.n_rows, device=x.device), counts)
+    rows = _rows(csr)
     vals = x[csr.col.long()]
     if csr.w is not None:
         vals = vals * csr.w[:, None]
@@ -101,13 +113,7 @@ def spmv_plain(x: torch.Tensor, csr: EdgeCSR) -> torch.Tensor:
 
 def spmv_cuda(x: torch.Tensor, csr: EdgeCSR) -> torch.Tensor:
     """Kernel A on the card: y = A x for float32 [n_cols, d <= 4] x."""
-    if not x.is_cuda or csr.device != x.device:
-        raise ValueError("spmv_cuda needs x and the CSR on one CUDA device")
-    if x.dtype != torch.float32 or not x.is_contiguous():
-        raise ValueError("kernel A takes contiguous float32 coordinates")
-    if x.dim() != 2 or x.shape[0] != csr.n_cols or not 1 <= x.shape[1] <= 4:
-        raise ValueError(f"kernel A takes [{csr.n_cols}, d<=4] coordinates, "
-                         f"got {tuple(x.shape)}")
+    _check_coords(x, csr, "kernel A")
     y = torch.empty((csr.n_rows, x.shape[1]), dtype=torch.float32,
                     device=x.device)
     if csr.n_rows == 0:
@@ -138,3 +144,63 @@ def attraction_spmv(x: torch.Tensor, csr: EdgeCSR, deg_w: torch.Tensor, *,
     """Plain-FA attraction through the SpMV (edge_spmm.py:1603-1611):
     F_att = attract * (A x - x * deg_w)."""
     return attract * (spmv(x, csr) - x * deg_w[:, None])
+
+
+def _check_coords(x: torch.Tensor, csr: EdgeCSR, name: str) -> None:
+    if not x.is_cuda or csr.device != x.device:
+        raise ValueError(f"{name} needs x and the CSR on one CUDA device")
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError(f"{name} takes contiguous float32 coordinates")
+    if x.dim() != 2 or x.shape[0] != csr.n_cols or not 1 <= x.shape[1] <= 4:
+        raise ValueError(f"{name} takes [{csr.n_cols}, d<=4] coordinates, "
+                         f"got {tuple(x.shape)}")
+
+
+def linlog_plain(x: torch.Tensor, csr: EdgeCSR, *, attract: float,
+                 eps: float, absolute: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of kernel E: F[i] = sum_e attract * c_e *
+    log1p(d_e)/d_e * (x[col_e] - x[i]), d_e = max(|x[col_e] - x[i]|, eps).
+    ``absolute`` sums the terms' magnitudes instead: the scale of each
+    element's float32 rounding, against which kernel E is held."""
+    if csr.w is None:
+        raise ValueError("linlog attraction needs the folded weights")
+    rows = _rows(csr)
+    diff = x[csr.col.long()] - x[rows]
+    dist = torch.clamp(torch.sqrt(torch.sum(diff * diff, dim=1)), min=eps)
+    per_edge = diff * (attract * csr.w * torch.log1p(dist) / dist)[:, None]
+    if absolute:
+        per_edge = per_edge.abs()
+    out = torch.zeros((csr.n_rows, x.shape[1]), dtype=x.dtype,
+                      device=x.device)
+    return out.index_add_(0, rows, per_edge)
+
+
+def linlog_cuda(x: torch.Tensor, csr: EdgeCSR, *, attract: float,
+                eps: float) -> torch.Tensor:
+    """Kernel E on the card: linlog attraction for float32 [n, d <= 4]
+    coordinates over a square CSR with float32 weights."""
+    _check_coords(x, csr, "kernel E")
+    if csr.w is None or csr.n_rows != csr.n_cols:
+        raise ValueError("kernel E takes a square CSR with weights")
+    out = torch.empty_like(x)
+    if csr.n_rows == 0:
+        return out
+    with torch.cuda.device(x.device):
+        rc = cuda.library().ge_edge_linlog(
+            csr.n_rows, x.shape[1], csr.indptr.data_ptr(), csr.col.data_ptr(),
+            csr.w.data_ptr(), x.data_ptr(), out.data_ptr(), float(attract),
+            float(eps), cuda.stream_of(x))
+    cuda.check(rc, "edge_linlog")
+    cuda.LAUNCHES["edge_linlog"] += 1
+    return out
+
+
+def linlog(x: torch.Tensor, csr: EdgeCSR, *, attract: float,
+           eps: float) -> torch.Tensor:
+    """Linlog attraction: kernel E for a CUDA tensor, the plain version for
+    a CPU tensor."""
+    if x.is_cuda:
+        return linlog_cuda(x, csr, attract=attract, eps=eps)
+    if x.device.type != "cpu":
+        raise ValueError(f"linlog runs on CUDA or the CPU, not {x.device}")
+    return linlog_plain(x, csr, attract=attract, eps=eps)

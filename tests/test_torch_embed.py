@@ -143,6 +143,27 @@ def test_radii_and_renormalize_match_jax(rng):
     np.testing.assert_allclose(nr.numpy(), np.asarray(nrj), rtol=1e-6)
 
 
+def test_project_to_levels_matches_jax(rng):
+    """The warm-start chain of aggregate means: each aggregate's members
+    summed in vertex order (a segment CSR), so float32 rounding only."""
+    from graph_embed_tpu.embed import driver as jdriver
+
+    from graph_embed_tpu_torch.embed import driver as pdriver
+
+    gj = jsynth.mesh3d(7)
+    res = gt.partition_hierarchy(gj, 0.2)
+    assert len(res.levels) >= 2
+    parts = [interop.partition(p.vertex_to_agg_numpy(), p.num_aggs)
+             for p in res.levels]
+    x0 = rng.uniform(-1, 1, (gj.n, 3)).astype(np.float32)
+    want = jdriver.project_to_levels(jnp.asarray(x0), res.levels)
+    got = pdriver.project_to_levels(torch.from_numpy(x0), parts)
+    assert len(got) == len(want) == len(parts) + 1
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
+                                   atol=1e-6)
+
+
 def test_embed_slice_matches_jax():
     """The slice as a whole: one graph and hierarchy (carried across with
     interop) and one warm start, so neither side draws a random init;

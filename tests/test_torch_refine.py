@@ -172,6 +172,34 @@ def test_local_degrees_and_external_pull_match_jax(rng):
         rtol=1e-5, atol=1e-4)
 
 
+@pytest.mark.parametrize("d", [0, 3, 6])
+def test_segment_sum_is_a_row_owned_sum(rng, d):
+    """ops.segment sums each segment's values in position order (kernel
+    A's unit mode on the card): the same float64 sums as numpy's bincount
+    up to float32 rounding, for flat values (d = 0) and rows of d."""
+    from graph_embed_tpu_torch.ops import segment
+
+    e, m = 500, 37
+    seg = rng.integers(0, m, e)
+    seg[:5] = 3  # one segment with repeats, and some left empty
+    vals = rng.uniform(-1, 1, (e,) if d == 0 else (e, d)).astype(np.float32)
+    csr = segment.segment_csr(seg, m)
+    got = segment.segment_sum(torch.from_numpy(vals), csr).numpy()
+    cols = vals[:, None] if d == 0 else vals
+    want = np.stack([np.bincount(seg, weights=cols[:, k].astype(np.float64),
+                                 minlength=m) for k in range(cols.shape[1])],
+                    axis=1)
+    np.testing.assert_allclose(got, want[:, 0] if d == 0 else want,
+                               rtol=1e-5, atol=1e-5)
+    # the sender CSR of a graph needs no host sort: entry e is column e
+    gj, pj, g, p, _ = _level(rng)
+    scsr = pml.sender_csr(g)
+    assert scsr.nnz == g.num_edges and scsr.n_rows == g.n
+    np.testing.assert_allclose(
+        segment.segment_sum(g.weights, scsr).numpy(),
+        g.degrees(True).numpy(), rtol=1e-6)
+
+
 @pytest.mark.parametrize("weighted", [False, True])
 def test_refine_forces_match_jax(rng, weighted):
     """Compared in vertex space (the two slot layouts differ: the port
