@@ -28,6 +28,27 @@
 // order is fixed by the CSR alone, so the result stays deterministic.
 // Later work: split the longest rows across warps, vectorised float4 state.
 //
+// Two more modes of kernel A share the row walk:
+//
+// * bf16x: replaces _spmv_kernel_v12pk(bf16_x=True) (:1247; gather :1187,
+//   layout pack_gather_layout_bf16 :1167), the reference's opt-in
+//   x_precision='bf16'.  x arrives as ceil(d/2) 32-bit words per row
+//   (ops/edge_spmm.py:pack_x_bf16, rounded to nearest even on the host
+//   side): coordinate 2p in the high half, 2p+1 in the low half.  Each
+//   entry gathers those words, hi = bits & 0xffff0000 and lo = bits << 16
+//   as float32, summed in float32 in CSR order; the reference's single
+//   scatter plane (:1057-1080) likewise sums exact bf16 products in
+//   float32.  At d = 3 a gathered row is 8 bytes instead of 12 (one
+//   8-byte load).  Unit weights only.
+// * null: the unit mode's launch and loads (indptr, col, gathered x) with
+//   the sum discarded behind a run-time zero mask, so every load stays;
+//   writes zeros.  Replaces the diagnostic _spmv_kernel_vnull (:992); its
+//   time is kernel A's memory-stream floor.
+//
+// The weighted mode also serves the reference's 'wide' packing
+// (_spmv_kernel_vw, :1335): exact float32 weights, counted apart by the
+// wrapper.
+//
 // Kernel E (same file): linlog attraction over the same row-sorted CSR,
 //
 //   F[i, :] = sum_{e in row i} attract * c_e * log1p(d_e) / d_e * diff_e,
@@ -69,6 +90,58 @@ struct SpmvTerm {
       for (int k = 0; k < D; ++k) acc[k] = fmaf(we, __ldg(xj + k), acc[k]);
     }
   }
+
+  __device__ __forceinline__ float out(float v) const { return v; }
+};
+
+// kernel A bf16x mode's term: the bf16 pair words of x[col_e], unpacked
+template <int D>
+struct Bf16xTerm {
+  static constexpr bool kRowState = false;
+  static constexpr int D2 = (D + 1) / 2;
+  const int* col;
+  const unsigned* xp;
+
+  __device__ __forceinline__ void add(const float (&)[D], int e,
+                                      float (&acc)[D]) const {
+    const unsigned* wj = xp + static_cast<size_t>(__ldg(col + e)) * D2;
+    unsigned words[D2];
+    if constexpr (D2 == 2) {
+      const uint2 v = __ldg(reinterpret_cast<const uint2*>(wj));
+      words[0] = v.x;
+      words[D2 - 1] = v.y;
+    } else {
+      words[0] = __ldg(wj);
+    }
+#pragma unroll
+    for (int p = 0; p < D2; ++p) {
+      acc[2 * p] += __uint_as_float(words[p] & 0xffff0000u);
+      if (2 * p + 1 < D) acc[2 * p + 1] += __uint_as_float(words[p] << 16);
+    }
+  }
+
+  __device__ __forceinline__ float out(float v) const { return v; }
+};
+
+// kernel A null mode's term: the unit term's loads and adds, whose sum the
+// run-time ``mask`` (0) clears at the end
+template <int D>
+struct NullTerm {
+  static constexpr bool kRowState = false;
+  const int* col;
+  const float* x;
+  int mask;
+
+  __device__ __forceinline__ void add(const float (&)[D], int e,
+                                      float (&acc)[D]) const {
+    const float* xj = x + static_cast<size_t>(__ldg(col + e)) * D;
+#pragma unroll
+    for (int k = 0; k < D; ++k) acc[k] += __ldg(xj + k);
+  }
+
+  __device__ __forceinline__ float out(float v) const {
+    return __int_as_float(__float_as_int(v) & mask);
+  }
 };
 
 // kernel E's term: attract * c_e * log1p(d)/d * (x[col_e] - x[i])
@@ -96,6 +169,8 @@ struct LinlogTerm {
 #pragma unroll
     for (int k = 0; k < D; ++k) acc[k] += diff[k] * coef;
   }
+
+  __device__ __forceinline__ float out(float v) const { return v; }
 };
 
 // out[i] = sum of term over row i's entries.  Every lane of a warp runs to
@@ -149,7 +224,7 @@ row_sum_kernel(int n_rows, const int* __restrict__ indptr,
   if (!active) return;
   float* oi = out + static_cast<size_t>(row) * D;
 #pragma unroll
-  for (int k = 0; k < D; ++k) oi[k] = acc[k];
+  for (int k = 0; k < D; ++k) oi[k] = term.out(acc[k]);
 }
 
 template <int D, class Term>
@@ -180,6 +255,18 @@ void launch_linlog(int n_rows, const int* indptr, const int* col,
                  out, stream);
 }
 
+template <int D>
+void launch_bf16x(int n_rows, const int* indptr, const int* col,
+                  const unsigned* xp, float* y, cudaStream_t stream) {
+  launch_rows<D>(n_rows, indptr, nullptr, Bf16xTerm<D>{col, xp}, y, stream);
+}
+
+template <int D>
+void launch_null(int n_rows, const int* indptr, const int* col,
+                 const float* x, float* y, cudaStream_t stream) {
+  launch_rows<D>(n_rows, indptr, nullptr, NullTerm<D>{col, x, 0}, y, stream);
+}
+
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 on success).  ``w`` may be
@@ -198,6 +285,48 @@ extern "C" int ge_edge_spmm(int n_rows, int d, const void* indptr,
     case 2: launch<2>(n_rows, ip, c, wf, xf, yf, s); break;
     case 3: launch<3>(n_rows, ip, c, wf, xf, yf, s); break;
     case 4: launch<4>(n_rows, ip, c, wf, xf, yf, s); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel A's bf16x mode: ``xp`` holds ceil(d/2) bf16-pair words per row.
+// Returns cudaGetLastError() after the launch.  The caller guarantees
+// n_rows > 0 and 1 <= d <= 4.
+extern "C" int ge_edge_spmm_bf16x(int n_rows, int d, const void* indptr,
+                                  const void* col, const void* xp, void* y,
+                                  void* stream) {
+  const int* ip = static_cast<const int*>(indptr);
+  const int* c = static_cast<const int*>(col);
+  const unsigned* xw = static_cast<const unsigned*>(xp);
+  float* yf = static_cast<float*>(y);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 1: launch_bf16x<1>(n_rows, ip, c, xw, yf, s); break;
+    case 2: launch_bf16x<2>(n_rows, ip, c, xw, yf, s); break;
+    case 3: launch_bf16x<3>(n_rows, ip, c, xw, yf, s); break;
+    case 4: launch_bf16x<4>(n_rows, ip, c, xw, yf, s); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel A's stream-only mode: the unit mode's loads, zeros written.
+// Returns cudaGetLastError() after the launch.  The caller guarantees
+// n_rows > 0 and 1 <= d <= 4.
+extern "C" int ge_edge_spmm_null(int n_rows, int d, const void* indptr,
+                                 const void* col, const void* x, void* y,
+                                 void* stream) {
+  const int* ip = static_cast<const int*>(indptr);
+  const int* c = static_cast<const int*>(col);
+  const float* xf = static_cast<const float*>(x);
+  float* yf = static_cast<float*>(y);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 1: launch_null<1>(n_rows, ip, c, xf, yf, s); break;
+    case 2: launch_null<2>(n_rows, ip, c, xf, yf, s); break;
+    case 3: launch_null<3>(n_rows, ip, c, xf, yf, s); break;
+    case 4: launch_null<4>(n_rows, ip, c, xf, yf, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

@@ -107,12 +107,9 @@ def force_atlas(g: Graph, dim: int = 2, *, coords=None, seed: int = 0,
 
     ``coords`` warm-starts the layout (forceatlas.hpp:118-125); otherwise
     U(-1, 1)^dim init from a ``torch.Generator`` seeded with ``seed``,
-    which also draws the sampled repulsion's partners."""
+    which also draws the sampled repulsion's partners.  ``x_precision``
+    has no effect here, as in the reference's flat.py."""
     params = params or ForceAtlasParams()
-    if params.x_precision != "f32":
-        raise NotImplementedError(
-            "x_precision='bf16' is not ported yet (ROADMAP queue 1, "
-            "item 4)")
     if iterations is None:
         iterations = params.iterations
     gen = torch.Generator(device=g.device).manual_seed(int(seed))

@@ -12,7 +12,9 @@ ghost slots after.  Then
   estimator in plain PyTorch;
 * intra-aggregate attraction is kernel A (``csrc/edge_spmm.cu``) over a
   slot-space CSR whose weights are truncated to bf16 exactly as the
-  reference packer does (unit-weight levels take the unit mode);
+  reference packer does (unit-weight levels take the unit mode, and under
+  ``x_precision='bf16'`` the bf16x mode where the reference pairs its slot
+  tiles);
 * the cut-edge pull is a per-slot vector computed once per level, its
   per-vertex sums row-owned over the level's sender CSR (kernel A);
 * the epilogue (center, max-norm, place into the parent ball,
@@ -37,9 +39,19 @@ from ..partition.interpolation import Partition
 from ..utils.params import MultilevelFAParams
 from . import forces as F
 from .multilevel import external_pull, sender_csr
+from .tiled import UNIT_SENDER_BLOCK, UNIT_TILE, UNIT_WINDOW
 
 # the plain repulsion versions evaluate at most this many pairs at once
 PLAIN_MAX_PAIRS = 1 << 24
+
+# the reference's bucket planning (multilevel_tiled.py:79-145), kept only
+# to place its slots and count its slab tiling
+_VMEM_CHUNK_BUDGET = 10 << 20
+_LIVE_BUFFERS = 5
+SMALL_MAX_S = 64
+ROLL_MAX_S = 16
+ROLL_LANES = 16384
+CHUNK_LANES = 4096
 
 
 def bucket_size_classes(counts):
@@ -82,6 +94,34 @@ class RefineLayout:
     num_aggs: int
 
 
+def _reference_bucket(S: int, m_b: int) -> tuple[int, int]:
+    """(padded aggregate count, base alignment) of one size class in the
+    reference's slot layout (plan_bucket, multilevel_tiled.py:112-145)."""
+    lane = max(S, 128)
+    C_try = (_VMEM_CHUNK_BUDGET // (_LIVE_BUFFERS * S * lane * 4)) // 8 * 8
+    if 2 <= S <= SMALL_MAX_S:
+        if S > ROLL_MAX_S:
+            C = CHUNK_LANES // S
+        else:
+            c_mult = max(8, 128 // S)
+            C = min(ROLL_LANES // S, -(-m_b // c_mult) * c_mult)
+        return -(-m_b // C) * C, C * S
+    if S <= 256 and C_try >= 8:
+        C = min(256, C_try)
+        return -(-m_b // C) * C, C * S
+    return m_b, S
+
+
+def _reference_pairs_slots(ss_ref, rr_ref, n_slots_ref: int) -> bool:
+    """Whether the reference pairs the unit slot tiling of these intra
+    edges (in its own slot ids): their slab count at the unit shape stays
+    within one call (multilevel_tiled.py:220-230), so its dispatch takes
+    the bf16-pair gather under x_precision='bf16'."""
+    count = ES.slab_count(ss_ref, rr_ref, n_slots_ref, UNIT_SENDER_BLOCK,
+                          UNIT_WINDOW, UNIT_TILE)
+    return count <= ES.MAX_SLABS_PER_CALL
+
+
 def _cta_table(buckets) -> np.ndarray:
     """Kernel B's per-CTA rows (cta start, S, bucket base, bucket end) over
     the exact buckets."""
@@ -114,12 +154,17 @@ def prepare_refine(g: Graph, part: Partition,
     cuts = np.concatenate([[0], np.flatnonzero(np.diff(S_sorted)) + 1, [m]])
     thr = params.sampled_slots_threshold
     slot_start = np.zeros(m, dtype=np.int64)
+    ref_start = np.zeros(m, dtype=np.int64)
     buckets = []
-    base = 0
+    base = ref_base = 0
     for i, j in zip(cuts[:-1], cuts[1:]):
         S = int(S_sorted[i])
         aggs = order_a[i:j]
         slot_start[aggs] = base + np.arange(j - i, dtype=np.int64) * S
+        m_b_pad, align = _reference_bucket(S, j - i)
+        ref_base = -(-ref_base // align) * align
+        ref_start[aggs] = ref_base + np.arange(j - i, dtype=np.int64) * S
+        ref_base += m_b_pad * S
         buckets.append(Bucket(
             base=int(base), m_b=int(j - i), S=S,
             aggs=torch.from_numpy(aggs.astype(np.int64)).to(dev),
@@ -151,9 +196,18 @@ def prepare_refine(g: Graph, part: Partition,
     keep = fw != 0.0
     ss = slot_of_vertex[s[intra][keep]]
     rr = slot_of_vertex[r[intra][keep]]
+    paired = False
+    if unit and params.x_precision == "bf16":
+        # the reference's slots: the same aggregate and member order on its
+        # own aligned bucket bases
+        ref_slot = np.zeros(n, dtype=np.int64)
+        ref_slot[order_v] = ref_start[v2a[order_v]] + pos
+        paired = _reference_pairs_slots(ref_slot[s[intra]],
+                                        ref_slot[r[intra]],
+                                        -(-ref_base // 128) * 128)
     csr, deg_w = ES.build_csr(ss, rr, None if unit else
                               ES.truncate_bf16(fw[keep]), n_slots,
-                              device=dev)
+                              device=dev, bf16_gather=paired)
 
     deg_loc = np.zeros(n_slots, np.float32)
     deg_loc[slot_of_vertex] = deg_np
@@ -332,7 +386,8 @@ def refine_forces(x, layout: RefineLayout, pull_slot,
                            num_samples=params.num_negative_samples,
                            generator=generator)
     att = ES.attraction_spmv(x, layout.csr, layout.deg_w,
-                             attract=params.attract)
+                             attract=params.attract,
+                             x_precision=params.x_precision)
     mag = torch.clamp(torch.sqrt(torch.sum(x * x, dim=1)), min=eps)
     ext = pull_slot / mag[:, None]
     grav = -(x / mag[:, None]) * (params.gravity
@@ -397,10 +452,6 @@ def refine_level_tiled(g: Graph, part: Partition, coords_A, r_A, dim: int,
     ``coords0``: [n, dim] warm-start offsets in the local aggregate frame.
     The same generator draws the sampled buckets' partners."""
     params = params or MultilevelFAParams()
-    if params.x_precision != "f32":
-        raise NotImplementedError(
-            "x_precision='bf16' is not ported yet (ROADMAP queue 1, "
-            "item 4)")
     if params.linlog:
         raise NotImplementedError(
             "linlog refinement needs the portable refinement, not ported "

@@ -120,6 +120,9 @@ def library():
             lib.ge_edge_spmm.restype = ctypes.c_int
             lib.ge_edge_spmm.argtypes = [ctypes.c_int, ctypes.c_int,
                                          p, p, p, p, p, p]
+            for fn in (lib.ge_edge_spmm_bf16x, lib.ge_edge_spmm_null):
+                fn.restype = ctypes.c_int
+                fn.argtypes = [ctypes.c_int, ctypes.c_int, p, p, p, p, p]
             lib.ge_bucket_repulsion.restype = ctypes.c_int
             lib.ge_bucket_repulsion.argtypes = [
                 ctypes.c_int, ctypes.c_int, p, p, p, p,

@@ -7,9 +7,11 @@ has six: +-1, +-L, +-L^2) are applied as
     y[i] = sum_k  W_k[i] * x[i + o_k]        (W_k[i] = 0 where no edge)
 
 in exact float32; the remaining (residual) edges stay on kernel A.  The
-plan's rules are the reference's; the port has no padded vertex count, so
-the plan's weight rows are [n] where the reference's are [n_pad], and
-``min_count`` defaults to ``max(DIA_MIN_COUNT, n // 16)``.  Kernel D
+plan's rules are the reference's.  The port pads no vertex count, so the
+plan's weight rows are [n] where the reference's are [n_pad]; the
+threshold still counts the reference's n_pad (``min_count`` defaults to
+``max(DIA_MIN_COUNT, n_pad // 16)``, with n_pad from
+``forceatlas.tiled.reference_shape``), so both plan the same offsets.  Kernel D
 applies the offsets in-kernel (``csrc/fused_step.cu``); ``dia_spmv`` here
 is the plain PyTorch version.
 """
@@ -21,7 +23,8 @@ import dataclasses
 import numpy as np
 import torch
 
-#: an offset qualifies when it covers >= max(DIA_MIN_COUNT, n // 16) edges
+#: an offset qualifies when it covers >= max(DIA_MIN_COUNT, n_pad // 16)
+#: edges
 DIA_MIN_COUNT = 1 << 16
 MAX_OFFSETS = 32  # also kernel D's limit (csrc/fused_step.cu)
 
@@ -35,17 +38,18 @@ class DiaPlan:
     residual_mask: np.ndarray  # [E] bool: edges NOT absorbed by a diagonal
 
 
-def plan_dia(s, r, w, n: int, *,
+def plan_dia(s, r, w, n: int, *, n_pad: int | None = None,
              min_count: int | None = None) -> DiaPlan | None:
     """Pick the index offsets worth a dedicated pass (host, numpy).
 
-    Returns None when no offset covers enough edges (irregular graphs keep
-    every edge on kernel A)."""
+    ``n_pad`` (default n) is the reference's padded vertex count; it sets
+    the default threshold only.  Returns None when no offset covers enough
+    edges (irregular graphs keep every edge on kernel A)."""
     s = np.asarray(s)
     r = np.asarray(r)
     w = np.asarray(w, dtype=np.float64)
     if min_count is None:
-        min_count = max(DIA_MIN_COUNT, n // 16)
+        min_count = max(DIA_MIN_COUNT, (n if n_pad is None else n_pad) // 16)
     if s.size == 0 or min_count <= 0 or s.size < min_count:
         return None
     off = r.astype(np.int64) - s.astype(np.int64)

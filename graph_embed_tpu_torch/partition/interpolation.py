@@ -50,3 +50,21 @@ class Partition:
     def agg_sizes(self) -> torch.Tensor:
         """[num_aggs] member count per aggregate."""
         return torch.bincount(self.vertex_to_agg, minlength=self.num_aggs)
+
+
+def compose(parts: list[Partition], upto: int | None = None) -> Partition:
+    """Compose level assignments 0..upto-1 into original vertex -> coarse
+    aggregate (graph_embed_tpu/partition/interpolation.py:97).  Host
+    copies compose on the host; otherwise on the first level's device."""
+    if upto is None:
+        upto = len(parts)
+    if all(p.host_v2a is not None for p in parts[:upto]):
+        h = parts[0].host_v2a
+        for p in parts[1:upto]:
+            h = p.host_v2a[h]
+        return Partition.from_numpy(h, parts[upto - 1].num_aggs,
+                                    device=parts[0].device)
+    v2a = parts[0].vertex_to_agg
+    for p in parts[1:upto]:
+        v2a = p.vertex_to_agg.to(v2a.device)[v2a]
+    return Partition(v2a, parts[upto - 1].num_aggs)

@@ -13,7 +13,8 @@ class ForceAtlasParams:
     """ForceAtlas2 knobs.  ``repulsion``: 'exact' (per-pair differences),
     'gram' (|xi-xj|^2 from the gram identity, full-f32 matmuls) or
     'sampled' (unbiased negative-sampling estimator).  ``x_precision``
-    'bf16' is not ported yet and is rejected where it would apply."""
+    'bf16' gathers x rounded to bf16 in the SpMVs where the reference's
+    dispatch would (kernel A's bf16x mode); elsewhere it has no effect."""
 
     iterations: int = 100_000
     ks: float = 0.1

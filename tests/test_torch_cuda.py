@@ -7,6 +7,8 @@ neither JAX nor the JAX package, so the GPU host runs it without them:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -357,3 +359,122 @@ def test_runs_on_card_are_bitwise_repeatable(dev):
         graph = graph.to(dev)
         assert torch.equal(gp.force_atlas_tiled(graph, 3, **kw),
                            gp.force_atlas_tiled(graph, 3, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 2, 3, 4])
+def test_kernel_a_bf16x_matches_plain(rng, dev, d):
+    """Kernel A's bf16x mode on packed bf16 pairs, hub rows included: each
+    element within 1e-5 of its own sum of |terms| from the plain version
+    (the same exact bf16 products, summed in another order)."""
+    n, e = 5000, 40000
+    s, r = _hub_coo(rng, n, e)
+    csr, _ = ES.build_csr(s, r, None, n, device=dev)
+    x = torch.from_numpy(rng.uniform(-1, 1, (n, d)).astype(np.float32)).to(
+        dev)
+    xp = ES.pack_x_bf16(x)
+    before = cuda.LAUNCHES["edge_spmm[bf16x]"]
+    got = ES.spmv_bf16x(xp, csr, d)
+    assert cuda.LAUNCHES["edge_spmm[bf16x]"] == before + 1
+    want = ES.spmv_bf16x_plain(xp, csr, d)
+    scale = ES.spmv_plain(ES.unpack_x_bf16(xp, d).abs(), csr)
+    torch.cuda.synchronize()
+    _assert_within_scale(got, want, scale)
+    assert torch.equal(ES.spmv_bf16x(xp, csr, d), got)
+
+
+@pytest.mark.cuda
+def test_kernel_a_exact_and_null_modes(rng, dev):
+    """The 'wide' route is the weighted mode on untruncated float32 weights,
+    counted apart; the stream-only mode launches and writes zeros."""
+    n, e = 5000, 40000
+    s, r = _hub_coo(rng, n, e)
+    w = rng.uniform(0.5, 2.0, s.size)
+    exact, _ = ES.build_csr(s, r, w, n, device=dev, exact=True)
+    unit, _ = ES.build_csr(s, r, None, n, device=dev)
+    x = torch.from_numpy(rng.uniform(-1, 1, (n, 3)).astype(np.float32)).to(
+        dev)
+    before = cuda.LAUNCHES.copy()
+    got = ES.spmv(x, exact)
+    null = ES.spmv_null(x, unit)
+    torch.cuda.synchronize()
+    assert cuda.LAUNCHES["edge_spmm[exact]"] == before["edge_spmm[exact]"] + 1
+    assert cuda.LAUNCHES["edge_spmm[vnull]"] == before["edge_spmm[vnull]"] + 1
+    _assert_within_scale(got, ES.spmv_plain(x, exact),
+                         ES.spmv_plain(x.abs(), exact))
+    assert not null.any()
+
+
+@pytest.mark.cuda
+def test_every_variant_name_matches_plain(rng, dev):
+    """spmv_windowed under each of the reference's variant names (and
+    spmv_windowed_v5) against the plain version of the mode it routes to."""
+    n = 5000
+    s, r = _hub_coo(rng, n, 20000)
+    w = rng.uniform(0.5, 2.0, s.size)
+    unit, _ = ES.build_csr(s, r, None, n, device=dev)
+    trunc, _ = ES.build_csr(s, r, ES.truncate_bf16(w), n, device=dev)
+    exact, _ = ES.build_csr(s, r, w, n, device=dev, exact=True)
+    x = torch.from_numpy(rng.uniform(-1, 1, (n, 3)).astype(np.float32)).to(
+        dev)
+    xb = ES.unpack_x_bf16(ES.pack_x_bf16(x), 3)
+    cases = [(v, unit) for v in ES.UNIT_VARIANTS]
+    cases += [(v, trunc) for v in ES.WEIGHTED_VARIANTS] + [("auto", exact)]
+    for v, csr in cases:
+        got = ES.spmv_windowed(x, csr, variant=v)
+        if v == "vnull":
+            assert not got.any()
+            continue
+        xin = xb if v.startswith("v12b") else x
+        wabs = csr if csr.w is None else dataclasses.replace(
+            csr, w=csr.w.abs())
+        torch.cuda.synchronize()
+        _assert_within_scale(got, ES.spmv_plain(xin, csr),
+                             ES.spmv_plain(xin.abs(), wabs))
+    _assert_within_scale(ES.spmv_windowed_v5(x, trunc),
+                         ES.spmv_plain(x, trunc),
+                         ES.spmv_plain(x.abs(), trunc))
+
+
+@pytest.mark.cuda
+def test_bf16x_wrapper_refuses_what_it_does_not_take(rng, dev):
+    n = 100
+    s, r = rng.integers(0, n, 500), rng.integers(0, n, 500)
+    unit, _ = ES.build_csr(s, r, None, n, device=dev)
+    weighted, _ = ES.build_csr(s, r, rng.uniform(0.5, 2, 500), n,
+                               device=dev)
+    xp = ES.pack_x_bf16(torch.zeros((n, 3), device=dev))
+    for bad in (xp.cpu(),                              # on the CPU
+                torch.zeros((2, n), dtype=torch.int32, device=dev).T,
+                xp[:-1],                               # wrong rows
+                xp.float()):                           # wrong type
+        with pytest.raises(ValueError):
+            ES.spmv_bf16x_cuda(bad, unit, 3)
+    with pytest.raises(ValueError):
+        ES.spmv_bf16x_cuda(xp, unit, 5)                # d > 4
+    with pytest.raises(ValueError):
+        ES.spmv_bf16x(xp, weighted, 3)                 # weights
+    with pytest.raises(ValueError):
+        ES.spmv_null_cuda(torch.zeros((n, 3)), unit)   # on the CPU
+
+
+@pytest.mark.cuda
+def test_bf16_flat_runs_are_bitwise_repeatable(dev):
+    """Two x_precision='bf16' flat runs from one seed on a unit residual
+    the reference would pair: kernel A's bf16x mode every step, equal
+    results."""
+    g = synth.rmat(12, 8, seed=2)
+    s, r, _ = g.to_coo_numpy()
+    g = gp.from_canonical_coo(s, r, np.ones(s.size), g.n).to(dev)
+    params = ForceAtlasParams(repulsion="sampled", num_negative_samples=64,
+                              x_precision="bf16")
+    tfa = TL.prepare_tiled(g, 3, params, spmv_mode="packed")
+    assert tfa.csr.bf16_gather
+    runs = []
+    for _ in range(2):
+        gen = torch.Generator(device=dev).manual_seed(5)
+        x0 = torch.rand((g.n, 3), generator=gen, device=dev) * 2 - 1
+        before = cuda.LAUNCHES["edge_spmm[bf16x]"]
+        runs.append(TL.tiled_loop(x0, tfa, params, 10, generator=gen))
+        assert cuda.LAUNCHES["edge_spmm[bf16x]"] == before + 10
+    assert torch.equal(runs[0], runs[1])

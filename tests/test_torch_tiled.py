@@ -16,6 +16,7 @@ import graph_embed_tpu as gt
 from graph_embed_tpu.forceatlas import tiled as JTL
 from graph_embed_tpu.graph import synth as jsynth
 from graph_embed_tpu.harness.runtests import layout_stress
+from graph_embed_tpu.ops import bsr as JBS
 from graph_embed_tpu.ops import dia as JDIA
 from graph_embed_tpu.ops.pallas import edge_spmm as JES
 from graph_embed_tpu.ops.pallas import repulsion as JRP
@@ -290,8 +291,11 @@ def test_prepare_tiled_modes():
     tfa = PTL.prepare_tiled(g, 3, params, spmv_mode="dia", dia_min_count=32)
     assert tfa.csr is None and len(tfa.dia_offsets) == 6
     assert tfa.dia_off.tolist() == list(tfa.dia_offsets)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PTL.prepare_tiled(g, 3, params, tiered_specs=((128, 128),))
+    # a one-tier tiling claims every edge; no DIA plan beside it
+    tfa = PTL.prepare_tiled(g, 3, params, tiered_specs=((128, 128, 128),),
+                            tiered_thresholds=())
+    assert tfa.dia_offsets == () and tfa.csr.nnz == g.num_edges
+    assert tfa.csr.kind == "unit"
     with pytest.raises(ValueError):
         PTL.prepare_tiled(g, 3, params, spmv_mode="windowed")
     with pytest.raises(ValueError, match="generator"):
@@ -325,3 +329,167 @@ def test_transposed_state_roundtrip(rng):
     np.testing.assert_array_equal(interop.from_transposed(xT, 10, 3), x)
     np.testing.assert_array_equal(
         xT, np.asarray(JES.pad_coords_T(jnp.asarray(x), 128)))
+
+
+# Repairs of the tiled plan against the reference's tile shape, DIA
+# threshold, overflow weights and BSR weights.
+
+class _Captured(Exception):
+    pass
+
+
+class _Shim:
+    """A two-edge graph of ``n`` vertices, enough for the reference's
+    prepare_tiled to resolve its tile shape."""
+
+    def __init__(self, n, w):
+        self.n = n
+        self._coo = (np.array([0, 1]), np.array([1, 0]), np.array([w, w]))
+
+    def to_coo_numpy(self):
+        return self._coo
+
+    def degrees_numpy(self, use_weights=True):
+        return np.bincount(self._coo[0], weights=self._coo[2],
+                           minlength=self.n)
+
+
+@pytest.mark.parametrize("xprec", ["f32", "bf16"])
+@pytest.mark.parametrize("unit", [True, False])
+def test_reference_shape_is_the_reference_s(monkeypatch, unit, xprec):
+    """(sender_block, window, tile, n_pad) exactly as the reference's
+    prepare_tiled resolves them, captured at its DIA plan and tile build,
+    on both sides of its 1.5M-vertex big-graph rule."""
+    seen = {}
+
+    def plan_dia(s, r, w, n, n_pad, **kw):
+        seen["n_pad"] = n_pad
+
+    def build_window_tiles(g, **kw):
+        seen.update(kw)
+        raise _Captured
+
+    monkeypatch.setattr(JDIA, "plan_dia", plan_dia)
+    monkeypatch.setattr(JES, "build_window_tiles", build_window_tiles)
+    params = ForceAtlasParams(repulsion="sampled", x_precision=xprec)
+    for n in (1000, 1_499_999, 1_500_000, 1_500_001, 1_600_001, 3_000_000):
+        seen.clear()
+        with pytest.raises(_Captured):
+            JTL.prepare_tiled(_Shim(n, 1.0 if unit else 2.0), 3, params,
+                              spmv_mode="dia", interpret=True)
+        want = (seen["sender_block"], seen["window"], seen["tile"],
+                seen["n_pad"])
+        assert PTL.reference_shape(n, unit, xprec) == want, n
+
+
+def test_dia_threshold_counts_n_pad():
+    """One offset of 100,100 edges at n = 1,600,001: above n // 16 =
+    100,000 but below the reference's n_pad // 16 = 100,352 (unit weights,
+    4096-by-8192 tiles), so neither package plans it."""
+    n = 1_600_001
+    s = np.arange(100_100)
+    r = s + 1
+    w = np.ones(s.size)
+    n_pad = PTL.reference_shape(n, True)[3]
+    assert n // 16 < s.size < n_pad // 16
+    assert JDIA.plan_dia(s, r, w, n, n_pad) is None
+    assert PDIA.plan_dia(s, r, w, n, n_pad=n_pad) is None
+    assert PDIA.plan_dia(s, r, w, n).offsets == (1,)  # n's own threshold
+    ss = np.concatenate([s, r])
+    rr = np.concatenate([r, s])
+    order = np.lexsort((rr, ss))
+    g = interop.graph(ss[order], rr[order], np.ones(ss.size), n)
+    tfa = PTL.prepare_tiled(g, 3, ForceAtlasParams(repulsion="sampled"))
+    assert tfa.dia_offsets == () and tfa.csr.nnz == ss.size
+
+
+def _sparse_cells_graph(rng, n=2000):
+    """Weighted, local edges dense in the diagonal (256, 256) cells plus a
+    few scattered ones: most off-diagonal cells hold fewer than 8 edges."""
+    s = rng.integers(0, n, 6000)
+    r = np.clip(s + rng.integers(-60, 60, s.size), 0, n - 1)
+    s = np.concatenate([s, rng.integers(0, n, 150)])
+    r = np.concatenate([r, rng.integers(0, n, 150)])
+    keep = s != r
+    return gt.from_edges(s[keep], r[keep], rng.uniform(0.5, 2.0, keep.sum()),
+                         n=n, symmetrize=True, dtype=jnp.float32)
+
+
+def test_min_pair_edges_keeps_overflow_weights_exact(rng):
+    """min_pair_edges=8: the edges of sparser cells keep their float32
+    weight, as on the reference's overflow path; the row sums equal
+    tiled_row_sums bitwise, and one step matches the reference's."""
+    gj = _sparse_cells_graph(rng)
+    g = _port(gj)
+    params = ForceAtlasParams(repulsion="sampled", num_negative_samples=S)
+    kw = dict(spmv_mode="packed", min_pair_edges=8)
+    tfa_j = JTL.prepare_tiled(gj, 3, params, interpret=True, **kw)
+    assert 0 < tfa_j.tiles.num_overflow < g.num_edges
+    tfa = PTL.prepare_tiled(g, 3, params, **kw)
+    np.testing.assert_array_equal(tfa.deg_w_att.numpy(),
+                                  np.asarray(tfa_j.deg_w_att)[:g.n])
+    w = tfa.csr.w.numpy()
+    assert (PES.truncate_bf16(w) != w).sum() == tfa_j.tiles.num_overflow
+    x = rng.uniform(-1, 1, (g.n, 3)).astype(np.float32)
+    fprev = np.zeros_like(x)
+    key = jax.random.PRNGKey(2)
+    xT, fT = JTL.fa_step_tiled_T(
+        jnp.asarray(interop.to_transposed(x, tfa_j.n_pad)),
+        jnp.asarray(interop.to_transposed(fprev, tfa_j.n_pad)), tfa_j,
+        params, key)
+    got_x, got_f = PTL.fa_step_tiled(torch.from_numpy(x),
+                                     torch.from_numpy(fprev), tfa, params,
+                                     sample_idx=_ids(key, S, g.n))
+    _close(got_f.numpy(), interop.from_transposed(fT, g.n, 3), 1e-4)
+
+
+def _bsr_graph(rng, n=1024):
+    """Weighted and locality-rich without DIA structure: dense random
+    (256, 256) diagonal blocks (~500 edges each) and a few scattered edges
+    whose pairs stay sparse."""
+    s = rng.integers(0, n, 2000)
+    r = (s // 256) * 256 + rng.integers(0, 256, s.size)
+    s = np.concatenate([s, rng.integers(0, n, 60)])
+    r = np.concatenate([r, rng.integers(0, n, 60)])
+    keep = s != r
+    return gt.from_edges(s[keep], r[keep], rng.uniform(0.5, 2.0, keep.sum()),
+                         n=n, symmetrize=True, dtype=jnp.float32)
+
+
+def test_bsr_weight_rule_matches_reference(rng):
+    """Where the reference's 'auto' takes BSR blocks: dense-pair weights
+    rounded to nearest bf16 and overflow weights exact, bitwise; row sums
+    to float32 rounding (rtol 1e-6); the attraction to spmv_bsr's class
+    (rtol 2e-4: its x runs through two bf16 passes)."""
+    gj = _bsr_graph(rng)
+    g = _port(gj)
+    params = ForceAtlasParams(repulsion="sampled", num_negative_samples=S)
+    tfa_j = JTL.prepare_tiled(gj, 3, params, interpret=True)
+    blocks = tfa_j.tiles
+    assert isinstance(blocks, JBS.BsrBlocks) and blocks.num_overflow > 0
+    tfa = PTL.prepare_tiled(g, 3, params)
+    assert tfa.dia_offsets == () and tfa.csr.kind == "weighted"
+    # the reference's (s, r, w) from its dense blocks and overflow COO
+    bl = np.asarray(blocks.blocks.astype(jnp.float32))
+    p, i, j = np.nonzero(bl)
+    s = np.asarray(blocks.sb)[p].astype(np.int64) * 256 + i
+    r = np.asarray(blocks.rw)[p].astype(np.int64) * 256 + j
+    s = np.concatenate([s, np.asarray(blocks.overflow_s)])
+    r = np.concatenate([r, np.asarray(blocks.overflow_r)])
+    w = np.concatenate([bl[p, i, j], np.asarray(blocks.overflow_w)])
+    order = np.lexsort((r, s))
+    counts = np.diff(tfa.csr.indptr.numpy())
+    got_s = np.repeat(np.arange(g.n), counts)
+    got_r = tfa.csr.col.numpy()
+    got_order = np.lexsort((got_r, got_s))
+    np.testing.assert_array_equal(got_s[got_order], s[order])
+    np.testing.assert_array_equal(got_r[got_order], r[order])
+    np.testing.assert_array_equal(tfa.csr.w.numpy()[got_order], w[order])
+    np.testing.assert_allclose(tfa.deg_w_att.numpy(),
+                               np.asarray(tfa_j.deg_w_att)[:g.n], rtol=1e-6)
+    x = rng.uniform(-1, 1, (g.n, 3)).astype(np.float32)
+    want = interop.from_transposed(JTL._attraction_T(
+        jnp.asarray(interop.to_transposed(x, tfa_j.n_pad)), tfa_j, params),
+        g.n, 3)
+    got = PTL._attraction(torch.from_numpy(x), tfa, params).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
