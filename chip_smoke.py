@@ -52,16 +52,39 @@ Phases, one JSON line each:
   bf16 embed  embed_graph on mesh3d(128) with x_precision='bf16' in both
             params: phase seconds beside the f32 embed's, bf16x launches in
             the level-0 refine;
+  halo      the halo-sharded flat step at 8 shards (one card, shards
+            stacked) on the LJ phase's community graph and partition-ordered
+            rmat(20, 8): the plan (blk, B_max, boundary fraction, Ec_max,
+            bytes of the ring's slot buffer and groups, host seconds);
+            kernel F (the ring's cross-edge attraction) against its plain
+            version, and its eight launches over a filled slot buffer
+            timed on the card alone (enqueued behind a device sleep, so no
+            host dispatch between them), as its plain version is; the
+            whole ring by events around it, on the card alone, and the
+            host's time to enqueue it; 3 steps with the ring (overlap=True)
+            against 3 with
+            the boundary gather from one start and the same samples,
+            within 2e-5 of the extent; ms per iteration and stored entries
+            per second of both beside the single-shard step's (lj phase);
+            then embed(mesh=make_mesh(8), sharding="halo") on mesh3d(128)
+            (levels 0 and 1 refine sharded) torch.equal to make_mesh(1);
   determinism  two embed_graph runs on mesh3d(12) (random init, then a warm
             start), two runs of the mesh3d(128) flat step and two of the
-            community graph's bf16 step: torch.equal;
+            community graph's bf16 step, and the halo base case of a small
+            graph (mesh_min_n=1, 200 iterations) on 1 and 8 shards:
+            torch.equal;
   cli       ``python -m graph_embed_tpu_torch.cli embed`` on a small
             ring-of-cliques file.
-Each path (main, entry, flat per graph, linlog, lj per plan, bf16 embed)
-is driven with the launch counts set to 0 just before it and read just
-after.
-Then the nvidia-smi line, the kernel summary as one JSON object, and the
-result line.  Any failed check exits non-zero with no result.  There is
+Each path (main, entry, flat per graph, linlog, lj per plan, bf16 embed,
+halo per graph, the sharded embed) is driven with the launch counts set to
+0 just before it and read just after.
+Then the nvidia-smi line, the kernel summary as one JSON object (per
+kernel: launches on its path, error, ms and plain ms as measured, the
+bound from this run's shapes -- the larger of the bytes the function must
+move over 3.35 TB/s and its operations over 67 TFLOP/s of float32, the
+H100 SXM's published peaks -- and the time of one PyTorch call
+that computes the same function, where one exists), and the result
+line.  Any failed check exits non-zero with no result.  There is
 no CPU run: without a CUDA device the script exits 1 at once.
 """
 
@@ -91,6 +114,67 @@ LJ_TIERS = dict(tiered_specs=((1024, 2048, 1024), (8192, 8192, 1024)),
 # the reference phase's small tiering: a bf16 tier and a wide one
 SMALL_TIERS = dict(tiered_specs=((256, 256, 128), (1024, 1024, 128)),
                    tiered_thresholds=(32,))
+# the halo phase: shards (scripts/halo_scale_run.py:9), steps compared,
+# iterations per timing and timings
+HALO_SHARDS = 8
+HALO_STEPS = 3
+HALO_ITERS = 10
+HALO_REPEATS = 3
+# the card's peaks for the bounds (NVIDIA's data sheet, H100 SXM at
+# 700 W): HBM bytes per second, float32 operations per second off the
+# tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+
+def pair_ops(d: int) -> int:
+    """Operations of one repulsion pair: d differences, d products and d - 1
+    sums for d^2, clamp, rsqrt or sqrt and divide, the cube and weight (5),
+    and d multiply-adds (2 d)."""
+    return 4 * d + 4
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time of a function on the card: the larger of its bytes
+    over HBM_BYTES_PER_S and its operations over F32_OPS_PER_S."""
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = ops / F32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_b, t_o),
+                bound_by="bytes" if t_b >= t_o else "operations",
+                bytes=int(nbytes), ops=int(ops))
+
+
+def spmv_bound(csr, d: int, x_row_bytes: int | None = None) -> dict:
+    """y = A x once: indptr, the column indices (and weights), every row
+    of x read once, y written once; a multiply-add per entry and
+    coordinate (an add in the unit modes)."""
+    weighted = csr.w is not None
+    x_row_bytes = 4 * d if x_row_bytes is None else x_row_bytes
+    nbytes = (4 * (csr.n_rows + 1) + 4 * csr.nnz * (2 if weighted else 1)
+              + x_row_bytes * csr.n_cols + 4 * d * csr.n_rows)
+    return bound(nbytes, csr.nnz * d * (2 if weighted else 1))
+
+
+def library_spmm_ms(torch, csr, x) -> float:
+    """One PyTorch call computing y = A x: torch.sparse.mm on a
+    sparse_csr_tensor of the same CSR (the yardstick; the port never
+    calls it), checked against the plain version first."""
+    import dataclasses
+
+    from graph_embed_tpu_torch.ops import edge_spmm as ES
+
+    vals = (csr.w if csr.w is not None else
+            torch.ones(csr.nnz, dtype=torch.float32, device=x.device))
+    A = torch.sparse_csr_tensor(csr.indptr, csr.col, vals,
+                                size=(csr.n_rows, csr.n_cols))
+    y = torch.sparse.mm(A, x)
+    want = ES.spmv_plain(x, csr)
+    wabs = csr if csr.w is None else dataclasses.replace(csr, w=csr.w.abs())
+    _, ratio = scaled_err(y, want, ES.spmv_plain(x.abs(), wabs))
+    emit(phase="kernels", kernel="library torch.sparse.mm", rows=csr.n_rows,
+         nnz=csr.nnz, max_err_over_scale=ratio)
+    require(ratio <= 10 * RTOL, "torch.sparse.mm computes the same y = A x")
+    return cuda_ms(lambda: torch.sparse.mm(A, x))
 
 
 def emit(**record) -> None:
@@ -119,6 +203,41 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 20, warmup: int = 3) -> tuple[float, float]:
+    """(median milliseconds of ``fn`` on the card alone, median
+    milliseconds the host takes to enqueue it).  Each timing enqueues
+    ``fn`` behind a device sleep that outlasts the host's enqueueing, so
+    the events around ``fn`` see the card's work back to back, without the
+    host's dispatch between launches (which ``cuda_ms`` sees wherever
+    dispatch is slower than the card)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    cycles = 1 << 21
+    dev, host = [], []
+    while len(dev) < reps:
+        e0, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        t0 = time.perf_counter()
+        e0.record()
+        torch.cuda._sleep(cycles)
+        a.record()
+        t1 = time.perf_counter()
+        fn()
+        b.record()
+        t2 = time.perf_counter()
+        b.synchronize()
+        if (t2 - t0) * 1e3 >= e0.elapsed_time(a):
+            # the card woke before the host had enqueued fn: sleep longer
+            require(cycles < 1 << 34, "device_ms: the sleep outlasts fn")
+            cycles *= 2
+            continue
+        dev.append(a.elapsed_time(b))
+        host.append((t2 - t1) * 1e3)
+    return statistics.median(dev), statistics.median(host)
 
 
 def max_err(got, want) -> tuple[float, float]:
@@ -203,7 +322,8 @@ def phase_kernels(torch, g, res, dev) -> dict:
              rtol=RTOL, ms=ms, plain_ms=plain_ms)
         require(ratio <= RTOL, f"{name} agrees with its plain version")
         out[name] = dict(max_abs_err=err, max_err_over_scale=ratio, ms=ms,
-                         plain_ms=plain_ms)
+                         plain_ms=plain_ms, **spmv_bound(csr, 3),
+                         library_ms=library_spmm_ms(torch, csr, x))
         slots[level] = (csr, x)
         if csr.w is None:
             out["edge_spmm[bf16x] slots"] = check_bf16x(
@@ -233,15 +353,22 @@ def phase_kernels(torch, g, res, dev) -> dict:
             x, layout, params.repel, params.epsilon))
         plain_ms = cuda_ms(lambda: MT.exact_repulsion_plain(
             x, layout, params.repel, params.epsilon), reps=5, warmup=1)
+        # member pairs of the exact buckets; x and the weights read once,
+        # the CTA table once, the forces written once
+        pairs = sum(int((b.counts * (b.counts - 1)).sum())
+                    for b in layout.buckets if not b.sampled)
+        b_bound = bound(layout.n_slots * (12 + 4 + 12)
+                        + 16 * layout.exact_meta.shape[0],
+                        pairs * pair_ops(3))
         emit(phase="kernels", kernel="bucket_repulsion", level=level,
              slots=layout.n_slots, ctas=int(layout.exact_meta.shape[0]),
-             ms=ms, plain_ms=plain_ms)
+             ms=ms, plain_ms=plain_ms, **b_bound)
         if level == 0:
-            b_ms, b_plain_ms = ms, plain_ms
+            b_ms, b_plain_ms, b0_bound = ms, plain_ms, b_bound
     out["bucket_repulsion"] = dict(
         max_abs_err=max(e for e, _ in b_err),
         max_err_over_scale=max(r for _, r in b_err), ms=b_ms,
-        plain_ms=b_plain_ms)
+        plain_ms=b_plain_ms, library_ms=None, **b0_bound)
     return out, slots
 
 
@@ -263,9 +390,13 @@ def check_bf16x(torch, csr, x, **fields) -> dict:
                plain_ms=cuda_ms(lambda: ES.spmv_bf16x_plain(xp, csr, d),
                                 reps=5, warmup=1),
                unit_ms=cuda_ms(lambda: ES.spmv_cuda(x, csr)),
-               pack_ms=cuda_ms(lambda: ES.pack_x_bf16(x)))
+               pack_ms=cuda_ms(lambda: ES.pack_x_bf16(x)),
+               **spmv_bound(csr, d, x_row_bytes=4 * ((d + 1) // 2)),
+               library_ms=library_spmm_ms(torch, csr,
+                                          ES.unpack_x_bf16(xp, d)))
     emit(phase="kernels", kernel="edge_spmm[bf16x]", **fields,
-         **{k: res[k] for k in ("ms", "plain_ms", "unit_ms", "pack_ms")})
+         **{k: res[k] for k in ("ms", "plain_ms", "unit_ms", "pack_ms",
+                                "bound_ms", "library_ms")})
     return res
 
 
@@ -288,10 +419,12 @@ def phase_lj_kernels(torch, lj: dict, dev) -> dict:
     got = ES.spmv_null_cuda(x, csr)
     torch.cuda.synchronize()
     require(not bool(got.any()), "the stream-only mode writes zeros")
+    # the unit mode's loads and a written y, no arithmetic
     out["edge_spmm[vnull]"] = dict(
         max_abs_err=0.0, max_err_over_scale=0.0,
         ms=cuda_ms(lambda: ES.spmv_null_cuda(x, csr)),
-        plain_ms=cuda_ms(lambda: ES.spmv_null_plain(x, csr)))
+        plain_ms=cuda_ms(lambda: ES.spmv_null_plain(x, csr)),
+        **dict(spmv_bound(csr, 3), ops=0), library_ms=None)
     emit(phase="kernels", kernel="edge_spmm[vnull]", graph="community_rmat",
          rows=csr.n_rows, nnz=csr.nnz, ms=out["edge_spmm[vnull]"]["ms"],
          unit_ms=out["edge_spmm[bf16x]"]["unit_ms"],
@@ -310,7 +443,8 @@ def phase_lj_kernels(torch, lj: dict, dev) -> dict:
     out["edge_spmm[exact]"] = dict(
         max_abs_err=err, max_err_over_scale=ratio,
         ms=cuda_ms(lambda: ES.spmv_cuda(x, csr)),
-        plain_ms=cuda_ms(lambda: ES.spmv_plain(x, csr), reps=5, warmup=1))
+        plain_ms=cuda_ms(lambda: ES.spmv_plain(x, csr), reps=5, warmup=1),
+        **spmv_bound(csr, 3), library_ms=library_spmm_ms(torch, csr, x))
     emit(phase="kernels", kernel="edge_spmm[exact]",
          graph="community_rmat tiered nohubs",
          ms=out["edge_spmm[exact]"]["ms"],
@@ -469,11 +603,12 @@ def lj_needs(tfa, params) -> tuple:
 
 
 def phase_lj(torch, lj: dict, dev) -> dict:
-    """The flat step on each LJ plan; launches per plan."""
+    """The flat step on each LJ plan; launches per plan.  Each plan's ms
+    per iteration joins its entry of ``lj``."""
     from graph_embed_tpu_torch.ops import cuda
 
     launches = {}
-    for name, (g, tfa, params, prep) in lj.items():
+    for name, (g, tfa, params, prep) in list(lj.items()):
         drive_steps(torch, tfa, params, dev, 2)   # warm-up
         torch.cuda.synchronize()
         cuda.LAUNCHES.clear()
@@ -493,6 +628,7 @@ def phase_lj(torch, lj: dict, dev) -> dict:
         for k in lj_needs(tfa, params):
             require(path.get(k, 0) > 0, f"{k} launched on the {name} path")
         ms = statistics.median(times)
+        lj[name] = (g, tfa, params, prep, ms)
         emit(phase="lj", graph=name, n=g.n, stored_entries=g.num_edges,
              prepare_tiled_seconds=prep, iterations=FLAT_ITERS,
              repeats=FLAT_REPEATS, ms_per_iteration=ms,
@@ -605,11 +741,21 @@ def phase_flat_kernels(torch, flat: dict, lj: dict, dev) -> dict:
                                                    y_res, *rest))
         plain_ms = cuda_ms(lambda: FS.fa_step_fused_plain(
             x, fprev, dia[0], dia[1], y_res, *rest), reps=5, warmup=1)
+        # x, f_prev, the DIA weights, y_res, the row sums and degrees and
+        # the sample ids read once, x' and f written once; the sample pairs,
+        # a multiply-add per DIA offset and coordinate, y_res's add
+        n, K = g.n, len(tfa.dia_offsets)
+        d_bound = bound(
+            4 * n * (3 + 3 + K + (3 if y_res is not None else 0) + 2)
+            + 4 * FLAT_SAMPLES + 4 * n * 6,
+            n * FLAT_SAMPLES * pair_ops(3) + 2 * K * n * 3
+            + (n * 3 if y_res is not None else 0))
         emit(phase="kernels", kernel="fused_step", graph=name, n=g.n,
              dia_offsets=len(tfa.dia_offsets), y_res=y_res is not None,
-             ms=ms, plain_ms=plain_ms)
+             ms=ms, plain_ms=plain_ms, **d_bound)
         if "fused_step" not in out:
-            out["fused_step"] = dict(ms=ms, plain_ms=plain_ms)
+            out["fused_step"] = dict(ms=ms, plain_ms=plain_ms,
+                                     library_ms=None, **d_bound)
     out["fused_step"].update(max_abs_err=max(e for e, _ in d_err),
                              max_err_over_scale=max(r for _, r in d_err))
 
@@ -623,10 +769,17 @@ def phase_flat_kernels(torch, flat: dict, lj: dict, dev) -> dict:
     torch.cuda.synchronize()
     err, ratio = hold("edge_linlog", got, want, scale, graph="rmat(20,8)",
                       rows=tfa.csr.n_rows, nnz=tfa.csr.nnz)
+    # kernel A's weighted bytes; per entry the distance (3 d), its sqrt,
+    # clamp, log1p and divide, the weight and attract products (6) and
+    # d multiply-adds
+    csr = tfa.csr
     out["edge_linlog"] = dict(
-        max_abs_err=err, max_err_over_scale=ratio, ms=cuda_ms(lambda: ES.linlog_cuda(x, tfa.csr, **kw)),
+        max_abs_err=err, max_err_over_scale=ratio,
+        ms=cuda_ms(lambda: ES.linlog_cuda(x, tfa.csr, **kw)),
         plain_ms=cuda_ms(lambda: ES.linlog_plain(x, tfa.csr, **kw), reps=5,
-                         warmup=1))
+                         warmup=1),
+        **bound(spmv_bound(csr, 3)["bytes"], csr.nnz * (5 * 3 + 6)),
+        library_ms=None)
 
     idx = RP.draw_samples(g.n, FLAT_SAMPLES, gen, dev)
     kw = dict(repel=params.repel, eps=params.epsilon)
@@ -642,7 +795,10 @@ def phase_flat_kernels(torch, flat: dict, lj: dict, dev) -> dict:
         ms=cuda_ms(lambda: RP.repulsion_sampled_cuda(x, tfa.deg_p1, idx,
                                                      **kw)),
         plain_ms=cuda_ms(lambda: RP.repulsion_sampled_plain(
-            x, tfa.deg_p1, idx, **kw), reps=5, warmup=1))
+            x, tfa.deg_p1, idx, **kw), reps=5, warmup=1),
+        **bound(4 * g.n * (3 + 1 + 3) + 4 * FLAT_SAMPLES,
+                g.n * FLAT_SAMPLES * pair_ops(3)),
+        library_ms=None)
     for name in ("edge_linlog", "sampled_repulsion"):
         emit(phase="kernels", kernel=name, graph="rmat(20,8)",
              ms=out[name]["ms"], plain_ms=out[name]["plain_ms"])
@@ -827,14 +983,238 @@ def phase_determinism(torch, flat: dict, lj: dict, dev) -> None:
             for _ in range(2)]
     require(torch.equal(runs[0], runs[1]),
             "two runs of the mesh flat step are equal")
-    _, tfa, params, _ = lj["community bf16"]
+    _, tfa, params = lj["community bf16"][:3]
     runs = [drive_steps(torch, tfa, params, dev, 5, seed=9)
             for _ in range(2)]
     require(torch.equal(runs[0], runs[1]),
             "two runs of the community graph's bf16 step are equal")
+    from graph_embed_tpu_torch.parallel.mesh import make_mesh
+
+    runs = [gp.embed_graph(g, 3, device=dev, base_iterations=200, seed=7,
+                           mesh_min_n=1, sharding="halo",
+                           mesh=make_mesh(k, device=dev))[0]
+            for k in (1, HALO_SHARDS)]
+    require(torch.equal(runs[0], runs[1]), "the halo base case on 1 and 8 "
+            "shards is equal")
     emit(phase="determinism", embed="mesh3d(12) x2, cold and warm",
          flat=f"mesh3d({MESH_SIDE}) 5 steps x2",
-         bf16_flat="community_rmat bf16 5 steps x2", equal=True)
+         bf16_flat="community_rmat bf16 5 steps x2",
+         halo_base="mesh3d(12), mesh_min_n=1, 200 iterations, 1 vs 8 "
+         "shards", equal=True)
+
+
+def halo_steps(torch, g, dev):
+    """The halo plan of ``g`` at HALO_SHARDS shards and its two tiled
+    steps: (plan, ring-overlap step, collective step, host seconds)."""
+    from graph_embed_tpu_torch.parallel import halo as PH
+    from graph_embed_tpu_torch.parallel import overlap as OV
+    from graph_embed_tpu_torch.parallel.mesh import make_mesh
+
+    params = flat_params()
+    mesh = make_mesh(HALO_SHARDS, device=dev)
+    t0 = time.perf_counter()
+    plan = PH.build_halo_plan(g, HALO_SHARDS, boundary_multiple=128)
+    groups = OV.build_overlap_groups(plan)
+    t_plan = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ov = PH.make_halo_fa_step(
+        mesh, plan, 3, params, overlap=True, groups=groups,
+        tiles=PH.build_halo_csr(plan, params, local_only=True, device=dev))
+    col = PH.make_halo_fa_step(
+        mesh, plan, 3, params,
+        tiles=PH.build_halo_csr(plan, params, device=dev))
+    torch.cuda.synchronize()
+    return plan, ov, col, dict(plan_seconds=t_plan,
+                               steps_seconds=time.perf_counter() - t0)
+
+
+def ring_bound(ring, plan, d: int = 3) -> dict:
+    """Kernel F over every slot: the four group arrays read once, each
+    distinct endpoint row (sender rows, exported rows) once, the per-edge
+    forces written once; per live edge 3 d + 8 operations (the distance,
+    sqrt, clamp, weight, attract, divide and mask, d products).  The ring's
+    forwards are copies the one-card transport adds: not counted."""
+    import numpy as np
+
+    rows = ring.csr.indptr[1:] != ring.csr.indptr[:-1]
+    senders = int(rows.sum())
+    exported = int(np.asarray(plan.boundary_counts).sum())
+    entries = ring.cs.numel()
+    return bound(16 * entries + 4 * d * (senders + exported)
+                 + 4 * d * entries, ring.live_edges * (3 * d + 8))
+
+
+def phase_halo(torch, lj: dict, dev) -> dict:
+    """The halo phase on the community graph and the ordered rmat graph
+    (see the module notes).  Returns the ring_attraction summary and the
+    launches of the community overlap run."""
+    from graph_embed_tpu_torch.ops import cuda
+    from graph_embed_tpu_torch.parallel import overlap as OV
+
+    out = {}
+    for name, single in (("community", "community f32"),
+                         ("rmat(20,8) ordered", "rmat(20,8) ordered f32")):
+        g = lj[single][0]
+        plan, ov, col, host = halo_steps(torch, g, dev)
+        ring = ov.ring
+        emit(phase="halo", graph=name, stage="plan", ndev=plan.ndev, n=g.n,
+             stored_entries=g.num_edges, blk=plan.blk, B_max=plan.B_max,
+             boundary_fraction=plan.boundary_fraction, ec_max=ring.ec,
+             cross_edges=ring.live_edges,
+             slot_buffer_bytes=plan.ndev * plan.ndev * plan.B_max * 3 * 4,
+             group_bytes=4 * 4 * ring.cs.numel(), **host)
+
+        # kernel F against its plain version on one layout
+        gen = torch.Generator(device=dev).manual_seed(11)
+        x = torch.zeros((plan.ndev * plan.blk, 3), device=dev)
+        x[: g.n] = torch.rand((g.n, 3), generator=gen, device=dev) * 2 - 1
+        params = flat_params()
+        got = OV.ring_cross_forces(x, ov.deg_p1, ring, params)
+        want = OV.ring_cross_forces_plain(x, ov.deg_p1, ring, params)
+        torch.cuda.synchronize()
+        # one term per element: its own size is its scale
+        err, ratio = hold("ring_attraction", got, want, want.abs(),
+                          graph=name, entries=ring.cs.numel(),
+                          live=ring.live_edges)
+        # kernel F alone: its launches over the eight slots of a slot
+        # buffer filled in advance (slot k of shard s holds the block of
+        # shard (s - k) % ndev), timed on the card alone, as its plain
+        # version is; it must give the ring's own output
+        ndev = plan.ndev
+        blocks = x[ring.bidx].view(ndev, plan.B_max, 3)
+        buf = torch.stack([torch.roll(blocks, k, 0) for k in range(ndev)])
+        alone = torch.empty_like(got)
+
+        def slots(fn, out=None):
+            return [fn(buf[k], x, ov.deg_p1, ring.cs[k], ring.cr[k],
+                       ring.cw[k], ring.mask[k], blk=ring.blk, params=params,
+                       **({} if out is None else {"out": out[k]}))
+                    for k in range(ndev)]
+
+        slots(OV.slot_forces_cuda, alone)
+        torch.cuda.synchronize()
+        require(torch.equal(alone, got), f"halo {name}: kernel F over a "
+                "filled slot buffer gives the ring's output")
+        ms, host_ms = device_ms(lambda: slots(OV.slot_forces_cuda, alone))
+        plain_ms, _ = device_ms(lambda: slots(OV.slot_forces_plain),
+                                reps=5, warmup=1)
+        # the whole ring (gather, forwards, events, launches): by events
+        # around the call, on the card alone, and the host's enqueueing
+        ring_ms = cuda_ms(lambda: OV.ring_cross_forces(x, ov.deg_p1, ring,
+                                                       params))
+        ring_dev_ms, ring_host_ms = device_ms(
+            lambda: OV.ring_cross_forces(x, ov.deg_p1, ring, params))
+        f_bound = ring_bound(ring, plan)
+        emit(phase="kernels", kernel="ring_attraction", graph=name, ms=ms,
+             host_ms=host_ms, plain_ms=plain_ms, ring_ms=ring_ms,
+             ring_device_ms=ring_dev_ms, ring_host_ms=ring_host_ms,
+             **f_bound)
+
+        # the ring against the gather: one start, the same samples
+        x0 = torch.zeros_like(x)
+        x0[: g.n] = torch.rand((g.n, 3), generator=gen, device=dev) * 2 - 1
+        ids = [ov.draw(gen) for _ in range(HALO_STEPS)]
+        runs, paths = [], []
+        for step in (ov, col):
+            torch.cuda.synchronize()
+            cuda.LAUNCHES.clear()
+            xs, f = x0, torch.zeros_like(x0)
+            for i in range(HALO_STEPS):
+                xs, f = step(xs, f, ids[i])
+            torch.cuda.synchronize()
+            paths.append(dict(cuda.LAUNCHES))
+            runs.append(xs[: g.n])
+        extent = float(runs[1].abs().max())
+        diff = float((runs[0] - runs[1]).abs().max())
+        require(bool(torch.isfinite(runs[0]).all()),
+                f"halo {name}: finite coordinates")
+        require(diff <= 2e-5 * extent, f"halo {name}: the ring agrees with "
+                f"the gather ({diff} > 2e-5 * {extent})")
+        require(paths[0].get("ring_attraction", 0) == HALO_STEPS * plan.ndev,
+                f"halo {name}: kernel F once per slot and step")
+        require(paths[0].get("edge_spmm[unit]", 0) > 0
+                and paths[1].get("edge_spmm[unit]", 0) > 0,
+                f"halo {name}: kernel A runs the tiled attraction")
+
+        # ms per iteration of both, beside the single-shard step's
+        times = {}
+        for label, step in (("overlap", ov), ("collective", col)):
+            xs, f = step(x0, torch.zeros_like(x0), ids[0])   # warm-up
+            per = []
+            for rep in range(HALO_REPEATS):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                for _ in range(HALO_ITERS):
+                    xs, f = step(xs, f, ov.draw(gen))
+                b.record()
+                b.synchronize()
+                per.append(a.elapsed_time(b) / HALO_ITERS)
+            times[label] = statistics.median(per)
+        # where a step's time goes: the attraction (kernel A), the ring
+        # (kernel F with its transport, above), the gram repulsion (plain
+        # PyTorch, as the reference's halo.py:547-558 is plain jnp)
+        parts = dict(
+            attraction_ms=cuda_ms(lambda: col._attraction(x0)),
+            local_attraction_ms=cuda_ms(lambda: ov._attraction(x0)),
+            ring_ms=ring_ms, ring_device_ms=ring_dev_ms,
+            ring_host_ms=ring_host_ms, kernel_f_ms=ms,
+            repulsion_ms=cuda_ms(lambda: col._repulsion(x0, ids[0])))
+        single_ms = lj[single][4]
+        emit(phase="halo", graph=name, stage="steps", steps=HALO_STEPS,
+             **parts,
+             max_abs_diff=diff, extent=extent, tol=2e-5,
+             launches_overlap=paths[0], launches_collective=paths[1],
+             iterations=HALO_ITERS, repeats=HALO_REPEATS,
+             overlap_ms=times["overlap"],
+             collective_ms=times["collective"], single_shard_ms=single_ms,
+             overlap_entries_per_second=g.num_edges / (times["overlap"]
+                                                       / 1e3),
+             collective_entries_per_second=g.num_edges
+             / (times["collective"] / 1e3),
+             single_shard_entries_per_second=g.num_edges / (single_ms
+                                                            / 1e3))
+        if name == "community":
+            out = dict(max_abs_err=err, max_err_over_scale=ratio, ms=ms,
+                       plain_ms=plain_ms, library_ms=None, **f_bound,
+                       launches=paths[0].get("ring_attraction", 0))
+    return out
+
+
+def phase_sharded_embed(torch, g, res, dev) -> dict:
+    """embed(mesh=make_mesh(8), sharding='halo') on mesh3d(128)'s own
+    hierarchy: levels of at least 65536 vertices refine with their
+    aggregates dealt over the shards; torch.equal to make_mesh(1)."""
+    import graph_embed_tpu_torch as gp
+    from graph_embed_tpu_torch.ops import cuda
+    from graph_embed_tpu_torch.parallel.mesh import make_mesh
+
+    sharded = [n for n in res.level_sizes[:-1] if n >= 65536]
+    require(len(sharded) >= 2, "levels 0 and 1 refine sharded")
+    outs, walls = [], []
+    for ndev in (HALO_SHARDS, 1):
+        metrics = gp.MetricsLogger()
+        torch.cuda.synchronize()
+        cuda.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        outs.append(gp.embed([g] + res.coarse_graphs, res.levels, 3,
+                             device=dev, base_iterations=1000, seed=5,
+                             mesh=make_mesh(ndev, device=dev),
+                             sharding="halo", metrics=metrics))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if ndev == HALO_SHARDS:
+            launches = dict(cuda.LAUNCHES)
+            spans = metrics.records
+    require(bool(torch.isfinite(outs[0]).all()), "finite sharded embed")
+    require(torch.equal(outs[0], outs[1]), "the 8-shard embed equals the "
+            "1-shard embed")
+    for k in ("edge_spmm[unit]", "bucket_repulsion"):
+        require(launches.get(k, 0) > 0, f"{k} on the sharded embed path")
+    emit(phase="sharded embed", n=g.n, sharded_levels=sharded,
+         seconds_8_shards=walls[0], seconds_1_shard=walls[1], equal=True,
+         launches=launches, spans=spans)
+    return launches
 
 
 def phase_cli(dev) -> None:
@@ -906,6 +1286,8 @@ def main() -> int:
     flat_launches = phase_flat(torch, flat, dev)
     lj_launches = phase_lj(torch, lj, dev)
     phase_bf16_embed(torch, g, dev, f32_wall)
+    kernels["ring_attraction"] = phase_halo(torch, lj, dev)
+    phase_sharded_embed(torch, g, res, dev)
     phase_determinism(torch, flat, lj, dev)
     phase_cli(dev)
     mesh_path = flat_launches[f"mesh3d({MESH_SIDE})"]
@@ -920,6 +1302,7 @@ def main() -> int:
     launches["edge_spmm[exact]"] = lj_launches["community tiered nohubs"][
         "edge_spmm[exact]"]
     launches["edge_spmm[vnull]"] = entry["edge_spmm[vnull]"]
+    launches["ring_attraction"] = kernels["ring_attraction"]["launches"]
 
     cu = "graph_embed_tpu_torch/csrc/edge_spmm.cu"
     ref = "graph_embed_tpu/ops/pallas/edge_spmm.py"
@@ -937,12 +1320,15 @@ def main() -> int:
                    "graph_embed_tpu/ops/pallas/repulsion.py:76"),
                "fused_step": ("graph_embed_tpu_torch/csrc/fused_step.cu",
                               "graph_embed_tpu/ops/pallas/fused_step.py:85"),
-               "edge_linlog": (cu, f"{ref}:203")}
+               "edge_linlog": (cu, f"{ref}:203"),
+               "ring_attraction": (
+                   "graph_embed_tpu_torch/csrc/ring_attraction.cu",
+                   "graph_embed_tpu/parallel/overlap.py:155")}
     summary = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=int(launches[name]),
                     **{k: kernels[name][k] for k in (
                         "max_abs_err", "max_err_over_scale", "ms",
-                        "plain_ms")})
+                        "plain_ms", "bound_ms", "bound_by", "library_ms")})
                for name, (src, rep) in sources.items()]
     print(smi)
     print(json.dumps({"kernels": summary}))

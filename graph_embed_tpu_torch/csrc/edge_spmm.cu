@@ -333,7 +333,8 @@ extern "C" int ge_edge_spmm_null(int n_rows, int d, const void* indptr,
 }
 
 // Kernel E.  Returns cudaGetLastError() after the launch.  The caller
-// guarantees n_rows > 0, 1 <= d <= 4 and a square CSR with weights.
+// guarantees n_rows > 0, 1 <= d <= 4 and a CSR with weights whose rows are
+// the first n_rows rows of x (x holds at least n_rows rows).
 extern "C" int ge_edge_linlog(int n_rows, int d, const void* indptr,
                               const void* col, const void* w, const void* x,
                               void* out, float attract, float eps,

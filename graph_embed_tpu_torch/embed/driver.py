@@ -17,6 +17,7 @@ radii sweep visits the host, with [m, d] centres.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable
 
 import numpy as np
@@ -25,7 +26,11 @@ import torch
 from ..forceatlas.flat import force_atlas
 from ..forceatlas.multilevel_tiled import prepare_refine, refine_level_tiled
 from ..graph.csr import Graph
+from ..graph.reorder import apply_order, partition_order
 from ..ops import segment
+from ..parallel.halo import halo_force_atlas
+from ..parallel.sharded_ml import (prepare_refine_sharded,
+                                   refine_level_sharded)
 from ..partition.hierarchy import partition_hierarchy
 from ..partition.interpolation import Partition
 from ..utils.params import ForceAtlasParams, MultilevelFAParams
@@ -90,7 +95,8 @@ def embed(graphs: list[Graph], parts: list[Partition], dim: int = 3, *,
           coords0=None,
           on_level: Callable | None = None,
           final_block=None, store=None, mesh=None,
-          sharding: str = "replicated") -> torch.Tensor:
+          mesh_min_n: int = 65536, sharding: str = "replicated",
+          base_order=None) -> torch.Tensor:
     """Multilevel embedding (src/embed.cpp:561-796); returns [n_0, dim]
     coordinates on ``device``.
 
@@ -110,6 +116,14 @@ def embed(graphs: list[Graph], parts: list[Partition], dim: int = 3, *,
     it was packed into.
     ``metrics`` receives one record per phase (base, radii, layout: the
     host's slot-layout prep, refine).
+    ``mesh`` (``parallel.mesh.make_mesh``, on ``device``): levels of at
+    least ``mesh_min_n`` vertices refine with their aggregates dealt over
+    the mesh's shards (``parallel.sharded_ml``), and with
+    ``sharding="halo"`` a coarsest level that large runs the halo step
+    (partition-ordered, vertex-partitioned, invariant sampling;
+    ``base_order`` gives its ordering, new position -> old id, instead of
+    partitioning the level again).  Both give the same layout at any shard
+    count.  ``sharding="replicated"`` (parallel/sharded.py) is not ported.
     """
     if final_block is not None:
         raise NotImplementedError("final_block (embedVia) is not ported yet "
@@ -117,9 +131,15 @@ def embed(graphs: list[Graph], parts: list[Partition], dim: int = 3, *,
     if store is not None:
         raise NotImplementedError("checkpointing is not ported yet "
                                   "(ROADMAP queue 1, item 5: checkpoint)")
-    if mesh is not None or sharding != "replicated":
-        raise NotImplementedError("multi-device embedding is not ported yet "
-                                  "(ROADMAP queue 1, item 6: parallel/)")
+    if sharding not in ("replicated", "halo"):
+        # a typo must not fall through to another design
+        raise ValueError(f"unknown sharding {sharding!r}; "
+                         "expected 'replicated' or 'halo'")
+    if mesh is not None and sharding == "replicated":
+        raise NotImplementedError(
+            "the replicated multi-shard design (parallel/sharded.py) is not "
+            "ported yet (ROADMAP queue 1, item 6: sharded.py); pass "
+            "sharding='halo'")
     if refine_backend == "portable":
         raise NotImplementedError("the portable refinement is not ported "
                                   "yet (ROADMAP queue 1, item 3)")
@@ -127,6 +147,9 @@ def embed(graphs: list[Graph], parts: list[Partition], dim: int = 3, *,
         raise ValueError(f"unknown refine_backend {refine_backend!r}")
     validate_hierarchy(graphs, parts)
     device = torch.device(device)
+    if mesh is not None and mesh.device != device:
+        raise ValueError(f"the mesh lives on {mesh.device}, the embed runs "
+                         f"on {device}")
     graphs = [g.to(device) for g in graphs]
     parts = [p.to(device) for p in parts]
     base_params = base_params or ForceAtlasParams()
@@ -142,10 +165,16 @@ def embed(graphs: list[Graph], parts: list[Partition], dim: int = 3, *,
 
     metrics = metrics or MetricsLogger()
     with metrics.span("base", device, level=k, n=graphs[k].n):
-        coords_A = force_atlas(graphs[k], dim, seed=seeds[k],
-                               params=base_params,
-                               iterations=base_iterations,
-                               coords=warm[k] if warm is not None else None)
+        warm_k = warm[k] if warm is not None else None
+        if mesh is not None and graphs[k].n >= mesh_min_n:
+            coords_A = _halo_base_case(graphs[k], dim, mesh, base_params,
+                                       base_iterations, seeds[k], warm_k,
+                                       order=base_order)
+        else:
+            coords_A = force_atlas(graphs[k], dim, seed=seeds[k],
+                                   params=base_params,
+                                   iterations=base_iterations,
+                                   coords=warm_k, device=device)
     r_Ac = coords_Ac = None
     for l in range(k - 1, -1, -1):
         A_c = graphs[l + 1]
@@ -163,20 +192,51 @@ def embed(graphs: list[Graph], parts: list[Partition], dim: int = 3, *,
             v2a = parts[l].vertex_to_agg
             local0 = ((warm[l] - coords_A[v2a])
                       / torch.clamp(r_A[v2a], min=1e-9)[:, None])
+        sharded = mesh is not None and graphs[l].n >= mesh_min_n
         with metrics.span("layout", device, level=l, n=graphs[l].n):
-            layout = prepare_refine(graphs[l], parts[l], refine_params)
+            if sharded:
+                layout = prepare_refine_sharded(graphs[l], parts[l],
+                                                refine_params, mesh.ndev)
+            else:
+                layout = prepare_refine(graphs[l], parts[l], refine_params)
+        refine = refine_level_sharded if sharded else refine_level_tiled
         with metrics.span("refine", device, level=l, n=graphs[l].n,
                           num_aggs=parts[l].num_aggs):
-            coords = refine_level_tiled(graphs[l], parts[l], coords_A, r_A,
-                                        dim, seed=seeds[l],
-                                        iterations=refine_iterations,
-                                        params=refine_params, layout=layout,
-                                        coords0=local0)
+            coords = refine(graphs[l], parts[l], coords_A, r_A, dim,
+                            seed=seeds[l], iterations=refine_iterations,
+                            params=refine_params, layout=layout,
+                            coords0=local0,
+                            **({"mesh": mesh} if sharded else {}))
         if on_level is not None:
             on_level(l, coords, parts[l], coords_A, r_A)
         coords_Ac, r_Ac = coords_A, r_A
         coords_A = coords
     return coords_A
+
+
+def _halo_base_case(g: Graph, dim: int, mesh, params: ForceAtlasParams,
+                    iterations: int, seed: int, warm, order=None):
+    """The boundary-aware base case (driver.py:293-328): partition-order
+    the level so the shard cut is small (or take ``order``), run the halo
+    step with invariant sampling (the same layout at any shard count), and
+    undo the order.  Repulsion is forced to 'sampled'."""
+    if params.repulsion != "sampled":
+        params = dataclasses.replace(params, repulsion="sampled")
+    perm = np.asarray(order) if order is not None else partition_order(g)
+    if perm.shape[0] != g.n:
+        raise ValueError(f"base_order has {perm.shape[0]} entries for a "
+                         f"{g.n}-vertex coarsest level")
+    if order is not None and np.bincount(perm, minlength=g.n).max() != 1:
+        raise ValueError("base_order is not a permutation of range(n)")
+    g_ord, inv = apply_order(g, perm)
+    warm_ord = None
+    if warm is not None:
+        warm_ord = warm[torch.from_numpy(perm).to(warm.device)]
+    out = halo_force_atlas(g_ord, dim, mesh=mesh, params=params,
+                           iterations=iterations, seed=seed,
+                           coords0=warm_ord, sample_mode="invariant",
+                           device=mesh.device)
+    return out[torch.from_numpy(inv).to(out.device)]
 
 
 def embed_graph(g: Graph, dim: int = 3, *, device,

@@ -19,6 +19,7 @@ import torch
 
 from ..graph.csr import Graph
 from ..ops import edge_spmm as ES
+from ..utils.device import resolve
 from ..utils.params import ForceAtlasParams
 from . import forces as F
 
@@ -102,8 +103,10 @@ def fa_step(coords, forces_prev, g: Graph, deg, params: ForceAtlasParams,
 
 def force_atlas(g: Graph, dim: int = 2, *, coords=None, seed: int = 0,
                 params: ForceAtlasParams | None = None,
-                iterations: int | None = None) -> torch.Tensor:
-    """Flat ForceAtlas layout on ``g``'s device.
+                iterations: int | None = None,
+                device="cuda") -> torch.Tensor:
+    """Flat ForceAtlas layout on ``device`` (the graph moves there; the
+    card by default, the CPU only when asked for).
 
     ``coords`` warm-starts the layout (forceatlas.hpp:118-125); otherwise
     U(-1, 1)^dim init from a ``torch.Generator`` seeded with ``seed``,
@@ -112,6 +115,7 @@ def force_atlas(g: Graph, dim: int = 2, *, coords=None, seed: int = 0,
     params = params or ForceAtlasParams()
     if iterations is None:
         iterations = params.iterations
+    g = g.to(resolve(device))
     gen = torch.Generator(device=g.device).manual_seed(int(seed))
     if coords is None:
         coords = (torch.rand((g.n, dim), generator=gen, dtype=g.dtype,

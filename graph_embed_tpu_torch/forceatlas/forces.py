@@ -97,6 +97,22 @@ def fold_edge_weights(weights, deg_senders, *, use_weights: bool,
     return c
 
 
+def attraction_fa(dist, weights, deg_p1_s, *, linlog: bool, delta: float,
+                  nohubs: bool, use_weights: bool):
+    """Attraction magnitude fa per stored entry (forceatlas.hpp:176-196):
+    dist (log1p under linlog), times w, 1 or sign(w)|w|^delta, divided by
+    deg_s + 1 under nohubs; the per-edge form of the halo step."""
+    fa = torch.log1p(dist) if linlog else dist
+    a = weights if use_weights else torch.ones_like(weights)
+    if delta == 1.0:
+        fa = fa * a
+    elif delta != 0.0:
+        fa = torch.sign(a) * torch.abs(a) ** delta * fa
+    if nohubs:
+        fa = fa / deg_p1_s
+    return fa
+
+
 def gravity_force(coords, deg_p1, gravity: float, *,
                   clamp_eps: float | None = None):
     """F_g = -(x_i/|x_i|) * gravity * (deg_i+1) (forceatlas.hpp:205-211);

@@ -60,6 +60,29 @@ def bucket_size_classes(counts):
                                       ).astype(np.int64))
 
 
+def size_classes(counts) -> list:
+    """(S, aggregate ids) of every size class, the smallest class first and
+    the ids ascending in each: the order in which buckets take slots."""
+    S_of_agg = bucket_size_classes(counts)
+    order = np.lexsort((np.arange(counts.size), S_of_agg))
+    S_sorted = S_of_agg[order]
+    cuts = np.concatenate([[0], np.flatnonzero(np.diff(S_sorted)) + 1,
+                           [counts.size]])
+    return [(int(S_sorted[i]), order[i:j])
+            for i, j in zip(cuts[:-1], cuts[1:]) if j > i]
+
+
+def vertex_slots(v2a, counts, start) -> np.ndarray:
+    """Each vertex's slot: its aggregate's first slot ``start[a]`` plus its
+    rank among the aggregate's members in vertex order."""
+    order_v = np.argsort(v2a, kind="stable")
+    vstart = np.concatenate([[0], np.cumsum(counts)])
+    out = np.zeros(v2a.size, dtype=np.int64)
+    out[order_v] = (start[v2a[order_v]] + np.arange(v2a.size)
+                    - vstart[v2a[order_v]])
+    return out
+
+
 @dataclasses.dataclass(frozen=True)
 class Bucket:
     """The aggregates of one size class: slots [base, base + m_b * S)."""
@@ -88,6 +111,11 @@ class RefineLayout:
     deg_w: torch.Tensor           # [n_slots] row sums of csr
     sender_csr: ES.EdgeCSR        # the level's stored entries by sender
     buckets: tuple
+    # per sampled size class, smallest first: (its aggregates, the indices
+    # of its buckets); the class's uniforms are drawn at once and dealt to
+    # its buckets in order, m_b rows each (ghost aggregates past the end
+    # get zeros), so a class dealt over shards draws as one bucket does
+    sampled_classes: tuple
     exact_meta: torch.Tensor      # [ctas, 4] int32 kernel B table
     n: int
     n_slots: int
@@ -139,50 +167,24 @@ def _cta_table(buckets) -> np.ndarray:
     return np.concatenate(rows).astype(np.int32)
 
 
-def prepare_refine(g: Graph, part: Partition,
-                   params: MultilevelFAParams) -> RefineLayout:
-    """Build the slot layout and the attraction CSR of one level (host
-    numpy, tensors placed on ``g``'s device)."""
+def slot_layout(g: Graph, v2a, counts, params: MultilevelFAParams,
+                slot_start, n_slots: int, buckets: list, *, ref_start=None,
+                ref_slots: int = 0) -> RefineLayout:
+    """The layout of one level from the first slot of every aggregate
+    (``slot_start``) and its buckets: vertex slots, the local degrees and
+    folded intra-aggregate weights as the reference layout computes them
+    (multilevel_tiled.py:199-220), the attraction CSR, the repulsion
+    weights.  ``ref_start`` gives the first slots of the reference's own
+    layout (``ref_slots`` slots in all): under ``x_precision='bf16'`` a unit
+    CSR takes the bf16 gather where that layout's slab count pairs its
+    tiles; without it the gather never applies.  Host numpy, tensors on
+    ``g``'s device."""
     dev = g.device
-    v2a = part.vertex_to_agg_numpy()
-    m = part.num_aggs
     n = g.n
-    counts = np.bincount(v2a, minlength=m)
-    S_of_agg = bucket_size_classes(counts)
-    order_a = np.lexsort((np.arange(m), S_of_agg))
-    S_sorted = S_of_agg[order_a]
-    cuts = np.concatenate([[0], np.flatnonzero(np.diff(S_sorted)) + 1, [m]])
-    thr = params.sampled_slots_threshold
-    slot_start = np.zeros(m, dtype=np.int64)
-    ref_start = np.zeros(m, dtype=np.int64)
-    buckets = []
-    base = ref_base = 0
-    for i, j in zip(cuts[:-1], cuts[1:]):
-        S = int(S_sorted[i])
-        aggs = order_a[i:j]
-        slot_start[aggs] = base + np.arange(j - i, dtype=np.int64) * S
-        m_b_pad, align = _reference_bucket(S, j - i)
-        ref_base = -(-ref_base // align) * align
-        ref_start[aggs] = ref_base + np.arange(j - i, dtype=np.int64) * S
-        ref_base += m_b_pad * S
-        buckets.append(Bucket(
-            base=int(base), m_b=int(j - i), S=S,
-            aggs=torch.from_numpy(aggs.astype(np.int64)).to(dev),
-            counts=torch.from_numpy(counts[aggs].astype(np.int64)).to(dev),
-            sampled=thr > 0 and S >= thr))
-        base += (j - i) * S
-    n_slots = int(base)
-
-    order_v = np.argsort(v2a, kind="stable")
-    vstart = np.concatenate([[0], np.cumsum(counts)])
-    pos = np.arange(n) - vstart[v2a[order_v]]
-    slot_of_vertex = np.zeros(n, dtype=np.int64)
-    slot_of_vertex[order_v] = slot_start[v2a[order_v]] + pos
+    slot_of_vertex = vertex_slots(v2a, counts, slot_start)
     valid = np.zeros(n_slots, dtype=bool)
     valid[slot_of_vertex] = True
 
-    # local degree and folded intra-aggregate weights, as the reference
-    # layout computes them (multilevel_tiled.py:199-220)
     s, r, w = g.to_coo_numpy()
     both = v2a[s] == v2a[r]
     intra = both & (s != r)
@@ -197,14 +199,13 @@ def prepare_refine(g: Graph, part: Partition,
     ss = slot_of_vertex[s[intra][keep]]
     rr = slot_of_vertex[r[intra][keep]]
     paired = False
-    if unit and params.x_precision == "bf16":
+    if unit and params.x_precision == "bf16" and ref_start is not None:
         # the reference's slots: the same aggregate and member order on its
         # own aligned bucket bases
-        ref_slot = np.zeros(n, dtype=np.int64)
-        ref_slot[order_v] = ref_start[v2a[order_v]] + pos
+        ref_slot = vertex_slots(v2a, counts, ref_start)
         paired = _reference_pairs_slots(ref_slot[s[intra]],
                                         ref_slot[r[intra]],
-                                        -(-ref_base // 128) * 128)
+                                        -(-ref_slots // 128) * 128)
     csr, deg_w = ES.build_csr(ss, rr, None if unit else
                               ES.truncate_bf16(fw[keep]), n_slots,
                               device=dev, bf16_gather=paired)
@@ -212,6 +213,8 @@ def prepare_refine(g: Graph, part: Partition,
     deg_loc = np.zeros(n_slots, np.float32)
     deg_loc[slot_of_vertex] = deg_np
     w_rep = np.where(valid, deg_loc + 1.0, 0.0).astype(np.float32)
+    S_of_agg = bucket_size_classes(counts)
+    sampled = sorted({b.S for b in buckets if b.sampled})
     return RefineLayout(
         slot_of_vertex=torch.from_numpy(slot_of_vertex).to(dev),
         valid_slot=torch.from_numpy(valid).to(dev),
@@ -219,8 +222,43 @@ def prepare_refine(g: Graph, part: Partition,
         w_rep=torch.from_numpy(w_rep).to(dev),
         csr=csr, deg_w=deg_w, sender_csr=sender_csr(g),
         buckets=tuple(buckets),
+        sampled_classes=tuple(
+            (int((S_of_agg == S).sum()),
+             tuple(i for i, b in enumerate(buckets) if b.sampled
+                   and b.S == S)) for S in sampled),
         exact_meta=torch.from_numpy(_cta_table(buckets)).to(dev),
-        n=n, n_slots=n_slots, num_aggs=m)
+        n=n, n_slots=n_slots, num_aggs=counts.size)
+
+
+def prepare_refine(g: Graph, part: Partition,
+                   params: MultilevelFAParams) -> RefineLayout:
+    """Build the slot layout and the attraction CSR of one level (host
+    numpy, tensors placed on ``g``'s device): one bucket per size class,
+    back to back."""
+    dev = g.device
+    v2a = part.vertex_to_agg_numpy()
+    m = part.num_aggs
+    counts = np.bincount(v2a, minlength=m)
+    thr = params.sampled_slots_threshold
+    slot_start = np.zeros(m, dtype=np.int64)
+    ref_start = np.zeros(m, dtype=np.int64)
+    buckets = []
+    base = ref_base = 0
+    for S, aggs in size_classes(counts):
+        m_b = aggs.size
+        slot_start[aggs] = base + np.arange(m_b, dtype=np.int64) * S
+        m_b_pad, align = _reference_bucket(S, m_b)
+        ref_base = -(-ref_base // align) * align
+        ref_start[aggs] = ref_base + np.arange(m_b, dtype=np.int64) * S
+        ref_base += m_b_pad * S
+        buckets.append(Bucket(
+            base=int(base), m_b=int(m_b), S=S,
+            aggs=torch.from_numpy(aggs.astype(np.int64)).to(dev),
+            counts=torch.from_numpy(counts[aggs].astype(np.int64)).to(dev),
+            sampled=thr > 0 and S >= thr))
+        base += m_b * S
+    return slot_layout(g, v2a, counts, params, slot_start, int(base),
+                       buckets, ref_start=ref_start, ref_slots=ref_base)
 
 
 def _pair_sum(xi, xj, wj, skip, eps: float, absolute: bool = False):
@@ -358,18 +396,24 @@ def bucket_repulsion(x, layout: RefineLayout, repel: float, eps: float, *,
         raise ValueError(f"bucket_repulsion runs on CUDA or the CPU, not "
                          f"{x.device}")
     d = x.shape[1]
-    for b in layout.buckets:
-        if not b.sampled:
-            continue
+    for m_c, bis in layout.sampled_classes:
         if generator is None:
             raise ValueError("sampled buckets need a generator")
-        ub = torch.rand((b.m_b, num_samples), generator=generator,
-                        dtype=x.dtype, device=x.device)
-        sl = b.slots
-        out[sl] = bucket_repulsion_sampled(
-            x[sl].reshape(b.m_b, b.S, d),
-            layout.w_rep[sl].reshape(b.m_b, b.S), b.counts, ub, repel,
-            eps).reshape(-1, d)
+        u = torch.rand((m_c, num_samples), generator=generator,
+                       dtype=x.dtype, device=x.device)
+        at = 0
+        for bi in bis:
+            b = layout.buckets[bi]
+            ub = u[at: at + b.m_b]
+            at += b.m_b
+            if ub.shape[0] < b.m_b:
+                ub = torch.cat([ub, ub.new_zeros((b.m_b - ub.shape[0],
+                                                  num_samples))])
+            sl = b.slots
+            out[sl] = bucket_repulsion_sampled(
+                x[sl].reshape(b.m_b, b.S, d),
+                layout.w_rep[sl].reshape(b.m_b, b.S), b.counts, ub, repel,
+                eps).reshape(-1, d)
     return out
 
 
@@ -420,11 +464,11 @@ def _place_into_parents(x, layout: RefineLayout, coords_A, r_A,
     return out
 
 
-def refine_loop(x, layout: RefineLayout, pull_slot, coords_A, r_A,
+def refine_loop(x, layout: RefineLayout, pull_slot,
                 params: MultilevelFAParams, iterations: int,
                 generator: torch.Generator | None = None) -> torch.Tensor:
-    """``iterations`` refinement steps in slot space, then the epilogue;
-    returns placed slot coordinates (ghosts 0)."""
+    """``iterations`` refinement steps in slot space; returns the slot
+    coordinates before the epilogue."""
     eps = params.epsilon
     deg_p1 = layout.deg_loc + 1.0
     valid = layout.valid_slot[:, None]
@@ -436,7 +480,7 @@ def refine_loop(x, layout: RefineLayout, pull_slot, coords_A, r_A,
                              swing_clamp_eps=eps)
         x = torch.where(valid, new, x)
         fprev = f
-    return _place_into_parents(x, layout, coords_A, r_A, eps)
+    return x
 
 
 def refine_level_tiled(g: Graph, part: Partition, coords_A, r_A, dim: int,
@@ -476,6 +520,6 @@ def refine_level_tiled(g: Graph, part: Partition, coords_A, r_A, dim: int,
         x[layout.slot_of_vertex] = torch.as_tensor(coords0).to(
             dev, torch.float32)
     x = torch.where(layout.valid_slot[:, None], x, torch.zeros_like(x))
-    out = refine_loop(x, layout, pull_slot, coords_A, r_A, params,
-                      iterations, gen)
+    x = refine_loop(x, layout, pull_slot, params, iterations, gen)
+    out = _place_into_parents(x, layout, coords_A, r_A, params.epsilon)
     return out[layout.slot_of_vertex]

@@ -36,6 +36,7 @@ from ..ops import dia as DIA
 from ..ops import edge_spmm as ES
 from ..ops import fused_step as FS
 from ..ops import repulsion as RP
+from ..utils.device import resolve
 from ..utils.params import ForceAtlasParams
 from . import forces as F
 
@@ -313,9 +314,11 @@ def tiled_loop(x0, tfa: TiledFA, params: ForceAtlasParams, iterations: int,
 def force_atlas_tiled(g: Graph, dim: int = 2, *, coords=None, seed: int = 0,
                       params: ForceAtlasParams | None = None,
                       iterations: int | None = None,
-                      tile: int | None = None) -> torch.Tensor:
-    """Flat ForceAtlas layout on the tiled step, on ``g``'s device (drop-in
-    for flat.force_atlas; sampled repulsion by default).
+                      tile: int | None = None,
+                      device="cuda") -> torch.Tensor:
+    """Flat ForceAtlas layout on the tiled step, on ``device`` (the graph
+    moves there; the card by default, the CPU only when asked for).
+    Drop-in for flat.force_atlas; sampled repulsion by default.
 
     ``coords`` warm-starts the layout; otherwise U(-1, 1)^dim from a
     ``torch.Generator`` seeded with ``seed``, which also draws the sample
@@ -323,6 +326,7 @@ def force_atlas_tiled(g: Graph, dim: int = 2, *, coords=None, seed: int = 0,
     params = params or ForceAtlasParams(repulsion="sampled")
     if iterations is None:
         iterations = params.iterations
+    g = g.to(resolve(device))
     gen = torch.Generator(device=g.device).manual_seed(int(seed))
     if coords is None:
         x0 = (torch.rand((g.n, dim), generator=gen, dtype=torch.float32,

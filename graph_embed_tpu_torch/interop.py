@@ -12,6 +12,8 @@ The reference's tiled step keeps its state transposed and padded,
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -42,6 +44,29 @@ def hierarchy(graph_coos, assignments, *, dtype=torch.float32,
 def tensor(a, *, dtype=torch.float32, device="cpu") -> torch.Tensor:
     """Coordinates, radii or any other array as a tensor on ``device``."""
     return torch.as_tensor(np.asarray(a), dtype=dtype).to(device)
+
+
+def _host_dataclass(cls, obj):
+    """``cls`` from any object with its fields: arrays through numpy, the
+    rest as ints."""
+    return cls(**{f.name: (np.asarray(getattr(obj, f.name))
+                           if f.type == "np.ndarray"
+                           else int(getattr(obj, f.name)))
+                  for f in dataclasses.fields(cls)})
+
+
+def halo_plan(plan):
+    """The port's HaloPlan from the JAX package's."""
+    from .parallel.halo import HaloPlan
+
+    return _host_dataclass(HaloPlan, plan)
+
+
+def overlap_groups(groups):
+    """The port's OverlapGroups from the JAX package's."""
+    from .parallel.overlap import OverlapGroups
+
+    return _host_dataclass(OverlapGroups, groups)
 
 
 D_PAD = 8  # the reference's coordinate sublane pad (edge_spmm.py D_PAD)

@@ -1,12 +1,13 @@
-"""Native (C++) host backends: g++ builds of the JAX package's sources,
-loaded with ctypes.
+"""Native (C++) host backends: g++ builds of the port's own copies of the
+coarsener and the first-collision sweep, loaded with ctypes.
 
-The sources are read by path from ``graph_embed_tpu/native/`` (the
-coarsener and the first-collision sweep are host code shared by both
-packages); the libraries are built into this package's own build directory
-so nothing is written into the reference tree.  Builds are atomic: g++
-writes a per-pid temporary and ``os.replace`` publishes it, so concurrent
-processes (parallel test workers) never load a half-written library.
+``csrc/coarsen.cpp`` and ``csrc/sweep.cpp`` are byte-for-byte copies of
+the JAX package's ``graph_embed_tpu/native`` sources (a test holds them
+equal, which keeps the two packages' hierarchies bit-identical); the port
+builds and reads nothing from that tree.  The libraries are built into the
+port's own build directory.  Builds are atomic: g++ writes a per-pid
+temporary and ``os.replace`` publishes it, so concurrent processes
+(parallel test workers) never load a half-written library.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import os
 import subprocess
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SRC_DIR = os.path.join(os.path.dirname(_PKG), "graph_embed_tpu", "native")
+SRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build", "native")
 
 
@@ -40,8 +41,8 @@ def build_shared(src: str, so: str, extra_flags: tuple = ()) -> str:
 
 
 def build_native(name: str) -> str:
-    """Build ``graph_embed_tpu/native/<name>.cpp`` into the port's build
-    directory.  FMA contraction is off: the C++ must round like numpy."""
+    """Build ``csrc/<name>.cpp`` into the port's build directory.  FMA
+    contraction is off: the C++ must round like numpy."""
     return build_shared(os.path.join(SRC_DIR, f"{name}.cpp"),
                         os.path.join(BUILD_DIR, f"_{name}.so"),
                         extra_flags=("-ffp-contract=off",))

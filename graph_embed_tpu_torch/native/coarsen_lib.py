@@ -1,5 +1,5 @@
-"""ctypes binding of the native mutual-best coarsener
-(graph_embed_tpu/native/coarsen.cpp), built on first use."""
+"""ctypes binding of the native mutual-best coarsener (``csrc/coarsen.cpp``,
+a copy of graph_embed_tpu/native/coarsen.cpp), built on first use."""
 
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
-"""ctypes binding of the native first-collision sweep
-(graph_embed_tpu/native/sweep.cpp), built on first use.  The sweep pops
+"""ctypes binding of the native first-collision sweep (``csrc/sweep.cpp``,
+a copy of graph_embed_tpu/native/sweep.cpp), built on first use.  The sweep pops
 the alive pair of least (tau, pair index) from a heap, bit-identical to
 the JAX package's Python heap (graph_embed_tpu/embed/radii.py:84-134)."""
 

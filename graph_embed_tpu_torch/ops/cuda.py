@@ -139,6 +139,10 @@ def library():
             lib.ge_fused_step.argtypes = [
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 p, p, p, p, p, p, p, p, f, f, f, f, f, f, f, p, p, p]
+            i = ctypes.c_int
+            lib.ge_ring_attraction.restype = i
+            lib.ge_ring_attraction.argtypes = [
+                i, i, i, i, i, p, p, p, p, p, p, p, f, f, f, i, i, i, p, p]
             lib.ge_error_string.restype = ctypes.c_char_p
             lib.ge_error_string.argtypes = [ctypes.c_int]
             lib.ge_bucket_tile.restype = ctypes.c_int

@@ -441,7 +441,8 @@ def _check_coords(x: torch.Tensor, csr: EdgeCSR, name: str) -> None:
 def linlog_plain(x: torch.Tensor, csr: EdgeCSR, *, attract: float,
                  eps: float, absolute: bool = False) -> torch.Tensor:
     """Plain PyTorch version of kernel E: F[i] = sum_e attract * c_e *
-    log1p(d_e)/d_e * (x[col_e] - x[i]), d_e = max(|x[col_e] - x[i]|, eps).
+    log1p(d_e)/d_e * (x[col_e] - x[i]), d_e = max(|x[col_e] - x[i]|, eps),
+    for the rows i < n_rows of x.
     ``absolute`` sums the terms' magnitudes instead: the scale of each
     element's float32 rounding, against which kernel E is held."""
     if csr.w is None:
@@ -459,12 +460,15 @@ def linlog_plain(x: torch.Tensor, csr: EdgeCSR, *, attract: float,
 
 def linlog_cuda(x: torch.Tensor, csr: EdgeCSR, *, attract: float,
                 eps: float) -> torch.Tensor:
-    """Kernel E on the card: linlog attraction for float32 [n, d <= 4]
-    coordinates over a square CSR with float32 weights."""
+    """Kernel E on the card: linlog attraction for float32 [n_cols, d <= 4]
+    coordinates over a CSR with float32 weights whose rows are the first
+    n_rows of them (square, or the halo step's [x | pool] columns)."""
     _check_coords(x, csr, "kernel E")
-    if csr.w is None or csr.n_rows != csr.n_cols:
-        raise ValueError("kernel E takes a square CSR with weights")
-    out = torch.empty_like(x)
+    if csr.w is None or csr.n_rows > csr.n_cols:
+        raise ValueError("kernel E takes a CSR with weights and no more "
+                         "rows than columns")
+    out = torch.empty((csr.n_rows, x.shape[1]), dtype=torch.float32,
+                      device=x.device)
     if csr.n_rows == 0:
         return out
     with torch.cuda.device(x.device):

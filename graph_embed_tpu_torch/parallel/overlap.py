@@ -1,0 +1,328 @@
+"""The ring halo exchange overlapped with the cross-edge attraction:
+kernel F (``csrc/ring_attraction.cu``) and its ring transport.
+
+Counterpart of graph_embed_tpu/parallel/overlap.py.  The collective halo
+step gathers every boundary block first and only then computes the
+cross-edge attraction.  The ring variant passes the boundary blocks around
+the shards instead and computes the attraction of the cross edges that
+receive from a block while the next block is in flight.
+
+* Host planning (``build_overlap_groups``, overlap.py:74-152): the cross
+  edges of each shard grouped by ring *arrival* slot -- slot k of shard s
+  holds the edges whose receiver is exported by shard (s - k) % ndev --
+  padded to ``ec_max``, plus the local edge split with the cross edges
+  deadened (sender -> ghost row ``blk``).  The TPU kernel's B_max % 128
+  check (:106) served its lane gather and is dropped; ``halo_force_atlas``
+  still rounds B_max to 128 for ``overlap=True``, so both packages build
+  the same plan.
+* The ring transport on one device (``ring_cross_forces``): a slot buffer
+  ``[slot, shard, B_max, d]``.  Slot 0 gathers each shard's own boundary
+  rows; then slot k is forwarded to the right neighbour's slot k + 1 (one
+  ``copy_`` of the shard-rolled slice, on a side CUDA stream) while kernel
+  F runs slot k on the compute stream.  Events order the two streams: F(k)
+  waits for the copy that wrote slot k, and the copy out of slot k waits
+  for slot k's data.  Slots are written once, and each holds exactly the
+  block that lands at that ring step, as on the TPU; a transport that puts
+  one shard on each card swaps only the copy.  The buffer is slot-major
+  (not the reference's per-device [D_PAD, B_max] slots) so that each ring
+  step reads and writes one contiguous block.  On the CPU the same code
+  runs the copies in order.
+* Kernel F computes one slot for every shard at once: per cross edge the
+  attraction of forces.attraction_fa (``slot_forces_cuda``); its plain
+  version ``slot_forces_plain``.  The per-edge forces ``[slot, shard,
+  ec_max, d]`` are summed per sender outside, over every slot in slot
+  order, by the row-owned segment sum (``RingGroups.csr``).
+
+``ring_cross_forces`` launches kernel F for a CUDA tensor and raises for
+what it does not take; ``ring_cross_forces_plain`` runs only where the
+caller asks for it (every CPU tensor goes there).  No fallback between
+the two.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..forceatlas import forces as F
+from ..ops import cuda
+from ..ops import edge_spmm as ES
+from ..utils.params import ForceAtlasParams
+from .mesh import round_up
+
+LANE = 128   # Ec_max rounds to this, as the reference's lane tiling does
+
+
+@dataclasses.dataclass(frozen=True)
+class OverlapGroups:
+    """Cross-edge groups in ring-arrival order and the local-only split
+    (host numpy, stacked per shard on axis 0, as the reference's).
+
+    ``cs/cr/cw/mask[shard, slot, ec_max]``: slot k holds the cross edges of
+    ``shard`` receiving from the boundary block of (shard - k) % ndev (slot
+    0, the shard's own block, is empty by construction).  ``cr`` indexes
+    the source shard's export list (< B_max).  ``local_*`` mirror
+    HaloPlan.senders_loc/recv_idx/weights with the cross edges deadened."""
+
+    ndev: int
+    ec_max: int
+    cs: np.ndarray            # [ndev, ndev, Ec_max] int32, pad = blk (ghost)
+    cr: np.ndarray            # [ndev, ndev, Ec_max] int32, pad = 0
+    cw: np.ndarray            # [ndev, ndev, Ec_max] weight, pad = 0
+    mask: np.ndarray          # [ndev, ndev, Ec_max] 1.0 live / 0.0 pad
+    local_senders: np.ndarray  # [ndev, e_max] int32
+    local_recv: np.ndarray     # [ndev, e_max] int32
+    local_weights: np.ndarray  # [ndev, e_max]
+
+
+def build_overlap_groups(plan) -> OverlapGroups:
+    """Ring-ordered cross-edge groups of a HaloPlan (overlap.py:99-152)."""
+    ndev, blk, B_max = plan.ndev, plan.blk, plan.B_max
+
+    per = [[[] for _ in range(ndev)] for _ in range(ndev)]
+    for d in range(ndev):
+        s_loc = plan.senders_loc[d]
+        r_idx = plan.recv_idx[d]
+        w = plan.weights[d]
+        cross = (r_idx >= blk) & (s_loc < blk)
+        pool = r_idx[cross] - blk
+        src = pool // B_max
+        slot = (d - src) % ndev
+        within = pool % B_max
+        cs_d = s_loc[cross]
+        cw_d = w[cross]
+        for k in range(ndev):
+            sel = slot == k
+            per[d][k] = (cs_d[sel], within[sel], cw_d[sel])
+
+    ec_max = max((g[0].size for row in per for g in row), default=0)
+    ec_max = max(round_up(max(ec_max, 1), LANE), LANE)
+    cs = np.full((ndev, ndev, ec_max), blk, np.int32)
+    cr = np.zeros((ndev, ndev, ec_max), np.int32)
+    cw = np.zeros((ndev, ndev, ec_max), plan.weights.dtype)
+    mask = np.zeros((ndev, ndev, ec_max), np.float32)
+    for d in range(ndev):
+        for k in range(ndev):
+            a, b, c = per[d][k]
+            m = a.size
+            cs[d, k, :m] = a
+            cr[d, k, :m] = b
+            cw[d, k, :m] = c
+            mask[d, k, :m] = 1.0
+
+    local_senders = plan.senders_loc.copy()
+    local_recv = plan.recv_idx.copy()
+    local_weights = plan.weights.copy()
+    is_cross = local_recv >= blk
+    local_senders[is_cross] = blk            # ghost row: dropped
+    local_recv[is_cross] = 0
+    local_weights[is_cross] = 0
+    return OverlapGroups(ndev=ndev, ec_max=ec_max, cs=cs, cr=cr, cw=cw,
+                         mask=mask, local_senders=local_senders,
+                         local_recv=local_recv, local_weights=local_weights)
+
+
+@dataclasses.dataclass(frozen=True)
+class RingGroups:
+    """The groups on the device, slot-major, and what the ring needs.
+
+    cs/cr: [slot, shard, ec] int32; cw/mask: [slot, shard, ec] float32;
+    bidx: [ndev * B_max] int64 rows of the stacked coordinates that each
+    shard exports (slot 0 of the ring); csr: the live entries of the
+    per-edge output ``[slot, shard, ec, d]`` (flattened, slot-major) by
+    global sender row, the order in which the cross forces are summed;
+    side: the CUDA stream of the ring's forwards (None on the CPU)."""
+
+    cs: torch.Tensor
+    cr: torch.Tensor
+    cw: torch.Tensor
+    mask: torch.Tensor
+    bidx: torch.Tensor
+    csr: ES.EdgeCSR
+    ndev: int
+    blk: int
+    b_max: int
+    ec: int
+    side: torch.cuda.Stream | None = None
+
+    @property
+    def live_edges(self) -> int:
+        return self.csr.nnz
+
+
+def ring_groups(groups: OverlapGroups, plan, device) -> RingGroups:
+    """Put ``groups`` on ``device`` slot-major, with the export rows and
+    the summation CSR."""
+    ndev, blk = plan.ndev, plan.blk
+
+    def slot_major(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(
+            np.swapaxes(a, 0, 1)).astype(dtype)).to(device)
+
+    mask = np.swapaxes(groups.mask, 0, 1)            # [slot, shard, ec]
+    cs = np.swapaxes(groups.cs, 0, 1)
+    live = (mask > 0) & (cs < blk)
+    flat = np.flatnonzero(live)
+    shard = (flat // groups.ec_max) % ndev
+    rows = shard.astype(np.int64) * blk + cs.reshape(-1)[flat]
+    # a stable sort by row keeps each sender's entries in slot order
+    csr, _ = ES.build_csr(rows, flat, None, ndev * blk, live.size,
+                          device=device)
+    return RingGroups(cs=slot_major(groups.cs, np.int32),
+                      cr=slot_major(groups.cr, np.int32),
+                      cw=slot_major(groups.cw, np.float32),
+                      mask=slot_major(groups.mask, np.float32),
+                      bidx=torch.from_numpy(plan.export_rows()).to(device),
+                      csr=csr,
+                      ndev=ndev, blk=blk, b_max=plan.B_max,
+                      ec=groups.ec_max,
+                      side=(torch.cuda.Stream(device)
+                            if torch.device(device).type == "cuda"
+                            else None))
+
+
+def slot_forces_plain(block, x, deg_p1, cs, cr, cw, mask, *, blk: int,
+                      params: ForceAtlasParams,
+                      absolute: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of kernel F: the per-edge cross attraction of
+    one ring slot, [shard, ec, d].
+
+    block: [shard, B_max, d] the slot's boundary rows; x: [shard * blk, d]
+    stacked coordinates; deg_p1: [shard * blk]; cs/cr/cw/mask: [shard, ec].
+    Padding edges give 0.  ``absolute`` gives |diff| * |coef| per element
+    instead, the scale of its float32 rounding."""
+    ndev, ec = cs.shape
+    shard = torch.arange(ndev, device=x.device)[:, None]
+    csl = cs.long()
+    live = (mask != 0) & (csl < blk)
+    row = shard * blk + torch.clamp(csl, max=blk - 1)
+    diff = block[shard, cr.long()] - x[row]
+    dist = torch.clamp(torch.sqrt(torch.sum(diff * diff, dim=-1)),
+                       min=params.epsilon)
+    fa = F.attraction_fa(dist, cw, deg_p1[row], linlog=params.linlog,
+                         delta=params.delta, nohubs=params.nohubs,
+                         use_weights=params.use_weights)
+    coef = params.attract * fa / dist * mask
+    out = diff.abs() * coef.abs()[..., None] if absolute \
+        else diff * coef[..., None]
+    return torch.where(live[..., None], out, torch.zeros_like(out))
+
+
+def slot_forces_cuda(block, x, deg_p1, cs, cr, cw, mask, *, blk: int,
+                     params: ForceAtlasParams,
+                     out: torch.Tensor | None = None) -> torch.Tensor:
+    """Kernel F on the card: one ring slot, every shard; writes ``out``
+    ([shard, ec, d] float32, allocated if None) and returns it."""
+    ndev, ec = cs.shape
+    d = x.shape[1] if x.dim() == 2 else 0
+    dev = x.device
+    if not x.is_cuda or any(t.device != dev for t in
+                            (block, deg_p1, cs, cr, cw, mask)):
+        raise ValueError("kernel F needs every operand on one CUDA device")
+    if not 1 <= d <= 4 or x.dtype != torch.float32 or not x.is_contiguous() \
+            or x.shape[0] % blk:
+        raise ValueError(f"kernel F takes contiguous float32 [shards * "
+                         f"{blk}, d<=4] coordinates, got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    if block.dim() != 3 or tuple(block.shape[::2]) != (ndev, d) \
+            or block.dtype != torch.float32 or not block.is_contiguous():
+        raise ValueError(f"kernel F takes a contiguous float32 [{ndev}, "
+                         f"B_max, {d}] slot block, got {tuple(block.shape)}")
+    for t, dt in ((cs, torch.int32), (cr, torch.int32), (cw, torch.float32),
+                  (mask, torch.float32)):
+        if t.dtype != dt or tuple(t.shape) != (ndev, ec) \
+                or not t.is_contiguous():
+            raise ValueError(f"kernel F's groups are contiguous [{ndev}, "
+                             f"{ec}] int32 cs/cr and float32 cw/mask")
+    if deg_p1.dtype != torch.float32 or tuple(deg_p1.shape) != (x.shape[0],):
+        raise ValueError("deg + 1 must be float32 [shards * blk]")
+    if x.shape[0] != ndev * blk or ndev * ec >= 1 << 31:
+        raise ValueError("kernel F indexes shards * ec with int32")
+    if out is None:
+        out = torch.empty((ndev, ec, d), dtype=torch.float32, device=dev)
+    if ndev * ec == 0:
+        return out
+    with torch.cuda.device(dev):
+        rc = cuda.library().ge_ring_attraction(
+            ndev * ec, ec, d, blk, block.shape[1], cs.data_ptr(),
+            cr.data_ptr(), cw.data_ptr(), mask.data_ptr(), block.data_ptr(),
+            x.data_ptr(), deg_p1.data_ptr(), float(params.attract),
+            float(params.epsilon), float(params.delta), int(params.linlog),
+            int(params.nohubs), int(params.use_weights), out.data_ptr(),
+            cuda.stream_of(x))
+    cuda.check(rc, "ring_attraction")
+    cuda.LAUNCHES["ring_attraction"] += 1
+    return out
+
+
+def _forward(buf: torch.Tensor, k: int) -> None:
+    """Slot k of shard s -> slot k + 1 of shard s + 1 (the ring's hop)."""
+    buf[k + 1, 1:].copy_(buf[k, :-1])
+    buf[k + 1, 0].copy_(buf[k, -1])
+
+
+def _ring(x, deg_p1, ring: RingGroups, params, slot_fn, side) -> torch.Tensor:
+    """The ring: slot 0 gathers each shard's boundary rows; slot k is
+    forwarded while ``slot_fn`` computes it.  ``side`` is the CUDA stream of
+    the forwards, or None to run everything in order."""
+    ndev, d = ring.ndev, x.shape[1]
+    buf = torch.empty((ndev, ndev, ring.b_max, d), dtype=x.dtype,
+                      device=x.device)
+    out = torch.empty((ndev, ndev, ring.ec, d), dtype=x.dtype,
+                      device=x.device)
+    torch.index_select(x, 0, ring.bidx, out=buf[0].view(-1, d))
+
+    def compute(k):
+        args = (buf[k], x, deg_p1, ring.cs[k], ring.cr[k], ring.cw[k],
+                ring.mask[k])
+        if side is None:
+            out[k] = slot_fn(*args, blk=ring.blk, params=params)
+        else:
+            slot_fn(*args, blk=ring.blk, params=params, out=out[k])
+
+    if side is None:
+        for k in range(ndev):
+            compute(k)
+            if k + 1 < ndev:
+                _forward(buf, k)
+        return out
+    comp = torch.cuda.current_stream(x.device)
+    ready = torch.cuda.Event()
+    ready.record(comp)                       # slot 0 gathered
+    for k in range(ndev):
+        if k + 1 < ndev:
+            side.wait_event(ready)           # slot k's data is there
+            with torch.cuda.stream(side):
+                _forward(buf, k)
+                ready = torch.cuda.Event()
+                ready.record(side)           # slot k + 1 written
+        compute(k)                           # overlaps the forward above
+        if k + 1 < ndev:
+            comp.wait_event(ready)           # F(k + 1) after its copy
+    buf.record_stream(side)
+    return out
+
+
+def ring_cross_forces_plain(x, deg_p1, ring: RingGroups,
+                            params: ForceAtlasParams) -> torch.Tensor:
+    """Plain version of the whole ring: the same transport, the copies in
+    order, and ``slot_forces_plain`` per slot.  [slot, shard, ec, d]."""
+    return _ring(x, deg_p1, ring, params, slot_forces_plain, None)
+
+
+def ring_cross_forces(x, deg_p1, ring: RingGroups,
+                      params: ForceAtlasParams) -> torch.Tensor:
+    """Per-edge cross-boundary attraction over the ring, [slot, shard, ec,
+    d] (overlap.py:274): kernel F per slot, with the forwards on a side
+    stream, for a CUDA tensor; the plain version for a CPU tensor."""
+    if x.is_cuda:
+        if ring.side is None or ring.side.device != x.device:
+            raise ValueError("the ring's groups live on another device than "
+                             "the coordinates")
+        return _ring(x, deg_p1, ring, params, slot_forces_cuda, ring.side)
+    if x.device.type != "cpu":
+        raise ValueError(f"ring_cross_forces runs on CUDA or the CPU, not "
+                         f"{x.device}")
+    return ring_cross_forces_plain(x, deg_p1, ring, params)

@@ -1,0 +1,178 @@
+"""The multilevel refinement with aggregates dealt to shards.
+
+Counterpart of graph_embed_tpu/parallel/sharded_ml.py (design notes
+there).  Every piece of a refinement iteration is local to the aggregate,
+so one iteration needs no exchange between shards.  Aggregates are
+bucketed into power-of-two size classes by the single-device rule
+(``bucket_size_classes``, sorted by (class, id)) and dealt contiguously to
+the shards within each class: aggregate k of a class of m_c goes to shard
+k // q at rank k % q, q = ceil(m_c / ndev).  Every shard's local slot space
+then has the same structure (the same classes, q aggregates each, ghost
+aggregates where a shard runs out), and the shards are stacked, device
+major, into one slot space that kernels A and B run in one launch each.
+
+The TPU's per-bucket VMEM/lane planning (``plan_bucket``) and the 128-slot
+rounding of the local space are TPU layout, not carried over: classes sit
+back to back.  What must not depend on the shard count does not:
+
+* per-aggregate arithmetic: kernel B walks each slot's aggregate, kernel A
+  each slot's row, in an order fixed by the aggregate alone;
+* draws: the random start is drawn per vertex, and the sampled classes'
+  uniforms per aggregate in class order, then dealt like the aggregates
+  (``RefineLayout.sampled_classes``);
+* the epilogue's mean is a row-owned segment sum over each aggregate's
+  members (``ops/segment.py``), its max norm a max.
+
+So a level refined on 1 and on 8 shards is bitwise the same (the JAX
+package pins this, tests/test_sharded_ml.py:52).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..forceatlas import multilevel_tiled as MT
+from ..forceatlas.multilevel import external_pull
+from ..graph.csr import Graph
+from ..ops import edge_spmm as ES
+from ..ops import segment
+from ..partition.interpolation import Partition
+from ..utils.params import MultilevelFAParams
+from .mesh import ShardMesh
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedRefineLayout:
+    """The device-major slot layout of one level over ``ndev`` shards.
+
+    ``layout`` is a RefineLayout over the whole stacked slot space (shard
+    d owns slots [d * n_slots_local, (d + 1) * n_slots_local)); its
+    buckets are one per (shard, class), shard major, ghost aggregates
+    carrying the id ``num_aggs`` and count 0.  ``members`` sums each
+    aggregate's member slots in slot order; ``agg_of_slot`` [n_slots]
+    (ghost slots ``num_aggs``)."""
+
+    ndev: int
+    n_slots_local: int
+    layout: MT.RefineLayout
+    members: ES.EdgeCSR
+    agg_of_slot: torch.Tensor
+
+
+def prepare_refine_sharded(g: Graph, part: Partition,
+                           params: MultilevelFAParams,
+                           ndev: int) -> ShardedRefineLayout:
+    """Deal the aggregates of one level to ``ndev`` shards and build the
+    stacked slot layout (host numpy, tensors on ``g``'s device).  The
+    reference's sharded tiles are never paired, so no bf16 gather."""
+    dev = g.device
+    v2a = part.vertex_to_agg_numpy()
+    m = part.num_aggs
+    counts = np.bincount(v2a, minlength=m)
+    thr = params.sampled_slots_threshold
+    classes = MT.size_classes(counts)
+    qs = [-(-aggs.size // ndev) for _, aggs in classes]
+    nsl = sum(q * S for (S, _), q in zip(classes, qs))
+
+    slot_start = np.zeros(m, dtype=np.int64)
+    buckets = []
+    for d in range(ndev):
+        base = d * nsl
+        for (S, aggs), q in zip(classes, qs):
+            ids = aggs[d * q: (d + 1) * q]
+            slot_start[ids] = base + np.arange(ids.size) * S
+            padded = np.full(q, m, dtype=np.int64)
+            padded[: ids.size] = ids
+            cnt = np.zeros(q, dtype=np.int64)
+            cnt[: ids.size] = counts[ids]
+            buckets.append(MT.Bucket(
+                base=int(base), m_b=q, S=S,
+                aggs=torch.from_numpy(padded).to(dev),
+                counts=torch.from_numpy(cnt).to(dev),
+                sampled=thr > 0 and S >= thr))
+            base += q * S
+    n_slots = ndev * nsl
+    layout = MT.slot_layout(g, v2a, counts, params, slot_start, n_slots,
+                            buckets)
+    agg_of_slot = np.full(n_slots, m, dtype=np.int64)
+    agg_of_slot[layout.slot_of_vertex.cpu().numpy()] = v2a
+    # each aggregate's member slots, in slot order (a stable sort by id)
+    live = np.flatnonzero(agg_of_slot < m)
+    members, _ = ES.build_csr(agg_of_slot[live], live, None, m, n_slots,
+                              device=dev)
+    return ShardedRefineLayout(
+        ndev=ndev, n_slots_local=nsl, layout=layout, members=members,
+        agg_of_slot=torch.from_numpy(agg_of_slot).to(dev))
+
+
+def _place_into_parents(x, shl: ShardedRefineLayout, coords_A, r_A,
+                        eps: float) -> torch.Tensor:
+    """The epilogue (forceatlas.hpp:539-570) with its sums row-owned:
+    center each aggregate on its member mean, scale by its max member
+    norm (clamped at eps), place into the parent ball; ghosts get 0."""
+    layout = shl.layout
+    m = layout.num_aggs
+    valid = layout.valid_slot[:, None]
+    cnt = (shl.members.indptr[1:] - shl.members.indptr[:-1]).to(x.dtype)
+    mean = segment.segment_sum(x, shl.members) / torch.clamp(
+        cnt, min=1)[:, None]
+    agg = torch.clamp(shl.agg_of_slot, max=m - 1)
+    centered = x - mean[agg]
+    norms = torch.where(layout.valid_slot,
+                        torch.sqrt(torch.sum(centered * centered, dim=1)),
+                        torch.zeros_like(x[:, 0]))
+    mx = torch.zeros(m + 1, dtype=x.dtype, device=x.device).scatter_reduce(
+        0, shl.agg_of_slot, norms, "amax")[:m]
+    mx = torch.clamp(mx, min=eps)
+    placed = coords_A[agg] + (r_A[agg] / mx[agg])[:, None] * centered
+    return torch.where(valid, placed, torch.zeros_like(placed))
+
+
+def refine_level_sharded(g: Graph, part: Partition, coords_A, r_A, dim: int,
+                         *, mesh: ShardMesh, seed: int = 0,
+                         iterations: int = 100,
+                         params: MultilevelFAParams | None = None,
+                         layout: ShardedRefineLayout | None = None,
+                         coords0=None) -> torch.Tensor:
+    """Refine one level with its aggregates dealt over ``mesh``'s shards
+    (sharded_ml.py:304-369) on the mesh's device; returns [n, dim].
+
+    The start is U(-1, 1)^dim per vertex from a generator seeded with
+    ``seed`` (which also draws the sampled classes' partners), or
+    ``coords0``: [n, dim] warm-start offsets in the local aggregate frame.
+    The same seed gives the same layout at any shard count."""
+    params = params or MultilevelFAParams()
+    if params.linlog:
+        raise NotImplementedError(
+            "linlog refinement needs the portable refinement, not ported "
+            "yet (ROADMAP queue 1, item 3)")
+    dev = mesh.device
+    g, part = g.to(dev), part.to(dev)
+    if layout is None:
+        layout = prepare_refine_sharded(g, part, params, mesh.ndev)
+    if layout.ndev != mesh.ndev:
+        raise ValueError(f"the layout has {layout.ndev} shards, the mesh "
+                         f"{mesh.ndev}")
+    lay = layout.layout
+    eps = params.epsilon
+    coords_A = torch.as_tensor(coords_A).to(dev, torch.float32)
+    r_A = torch.as_tensor(r_A).to(dev, torch.float32)
+    pull_v = external_pull(g, part, coords_A, pull=params.pull, eps=eps,
+                           csr=lay.sender_csr)
+    pull_slot = torch.zeros((lay.n_slots, dim), dtype=torch.float32,
+                            device=dev)
+    pull_slot[lay.slot_of_vertex] = pull_v.to(torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    if coords0 is None:
+        c0 = torch.rand((lay.n, dim), generator=gen, dtype=torch.float32,
+                        device=dev) * 2.0 - 1.0
+    else:
+        c0 = torch.as_tensor(coords0).to(dev, torch.float32)
+    x = torch.zeros((lay.n_slots, dim), dtype=torch.float32, device=dev)
+    x[lay.slot_of_vertex] = c0
+    x = MT.refine_loop(x, lay, pull_slot, params, iterations, gen)
+    out = _place_into_parents(x, layout, coords_A, r_A, eps)
+    return out[lay.slot_of_vertex]

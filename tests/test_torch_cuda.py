@@ -289,10 +289,11 @@ def test_flat_linlog_base_case_runs_kernel_e(rng, dev):
     params = ForceAtlasParams(repulsion="exact", linlog=True)
     x0 = torch.from_numpy(rng.uniform(-1, 1, (g.n, 3)).astype(np.float32))
     before = cuda.LAUNCHES["edge_linlog"]
-    card = gp.force_atlas(g.to(dev), 3, coords=x0, params=params,
-                          iterations=10).cpu()
+    card = gp.force_atlas(g, 3, coords=x0, params=params, iterations=10,
+                          device=dev).cpu()
     assert cuda.LAUNCHES["edge_linlog"] == before + 10
-    cpu = gp.force_atlas(g, 3, coords=x0, params=params, iterations=10)
+    cpu = gp.force_atlas(g, 3, coords=x0, params=params, iterations=10,
+                         device="cpu")
     assert float((card - cpu).abs().max()) <= 1e-4 * float(cpu.abs().max())
 
 
@@ -357,8 +358,8 @@ def test_runs_on_card_are_bitwise_repeatable(dev):
                                       num_negative_samples=64))
     for graph in (g, synth.mesh3d(10, extra_frac=0.3, seed=1)):
         graph = graph.to(dev)
-        assert torch.equal(gp.force_atlas_tiled(graph, 3, **kw),
-                           gp.force_atlas_tiled(graph, 3, **kw))
+        assert torch.equal(gp.force_atlas_tiled(graph, 3, device=dev, **kw),
+                           gp.force_atlas_tiled(graph, 3, device=dev, **kw))
 
 
 @pytest.mark.cuda
@@ -478,3 +479,124 @@ def test_bf16_flat_runs_are_bitwise_repeatable(dev):
         runs.append(TL.tiled_loop(x0, tfa, params, 10, generator=gen))
         assert cuda.LAUNCHES["edge_spmm[bf16x]"] == before + 10
     assert torch.equal(runs[0], runs[1])
+
+
+def _ring_case(rng, dev, ndev, n, weighted=True, avg_deg=6):
+    """A random graph's halo plan (B_max rounded to 128) and its ring
+    groups on ``dev``, with random stacked coordinates."""
+    from graph_embed_tpu_torch.parallel import halo as PH
+    from graph_embed_tpu_torch.parallel import overlap as OV
+
+    m = n * avg_deg // 2
+    s, r = rng.integers(0, n, m), rng.integers(0, n, m)
+    keep = s != r
+    w = rng.uniform(0.5, 2.0, keep.sum()) if weighted else None
+    g = from_edges(s[keep], r[keep], w, n=n, symmetrize=True)
+    plan = PH.build_halo_plan(g, ndev, boundary_multiple=128)
+    ring = OV.ring_groups(OV.build_overlap_groups(plan), plan, dev)
+    x = torch.zeros((ndev * plan.blk, 3), device=dev)
+    x[:n] = torch.from_numpy(rng.uniform(-1, 1, (n, 3)).astype(
+        np.float32)).to(dev)
+    deg_p1 = torch.from_numpy(plan.deg.reshape(-1).astype(
+        np.float32)).to(dev) + 1.0
+    return g, plan, ring, x, deg_p1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ndev,n", [(1, 300), (4, 500), (8, 3000)])
+@pytest.mark.parametrize("linlog,nohubs,delta", [(False, False, 1.0),
+                                                 (True, True, 0.5)])
+def test_kernel_f_matches_plain(rng, dev, ndev, n, linlog, nohubs, delta):
+    """The whole ring on the card (kernel F per slot, forwards on a side
+    stream) against its plain version (the copies in order) on the same
+    tensors: every per-edge element within 1e-5 of its |diff| * |coef|,
+    Ec_max padding and the empty slot 0 exact zeros, one launch per slot;
+    the summed cross forces match too."""
+    from graph_embed_tpu_torch.parallel import overlap as OV
+
+    _, plan, ring, x, deg_p1 = _ring_case(rng, dev, ndev, n)
+    params = ForceAtlasParams(repulsion="sampled", linlog=linlog,
+                              nohubs=nohubs, delta=delta)
+    before = cuda.LAUNCHES["ring_attraction"]
+    got = OV.ring_cross_forces(x, deg_p1, ring, params)
+    assert cuda.LAUNCHES["ring_attraction"] == before + ndev
+    want = OV.ring_cross_forces_plain(x, deg_p1, ring, params)
+    torch.cuda.synchronize()
+    # each element is one term, diff * coef: its own size is its scale
+    _assert_within_scale(got, want, want.abs())
+    dead = (ring.mask == 0)[..., None].expand_as(got)
+    assert not got[dead].any()
+    assert not got[0].any()                          # slot 0 is empty
+    summed = segment.segment_sum(got.view(-1, 3), ring.csr)
+    torch.testing.assert_close(
+        summed, segment.segment_sum(want.view(-1, 3), ring.csr),
+        rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_kernel_f_refuses_what_it_does_not_take(rng, dev):
+    from graph_embed_tpu_torch.parallel import overlap as OV
+
+    _, plan, ring, x, deg_p1 = _ring_case(rng, dev, 4, 400)
+    params = ForceAtlasParams(repulsion="sampled")
+    block = x[ring.bidx].view(4, plan.B_max, 3)
+    args = [block, x, deg_p1, ring.cs[1], ring.cr[1], ring.cw[1],
+            ring.mask[1]]
+    OV.slot_forces_cuda(*args, blk=plan.blk, params=params)
+    for i, bad in ((1, x.cpu()), (1, x.double()), (1, x[:, :2].T),
+                   (3, ring.cs[1].long()), (4, ring.cr[1][:, :-1]),
+                   (5, ring.cw[1].double()), (2, deg_p1[:-1]),
+                   (0, block[:, :, :2])):
+        with pytest.raises(ValueError):
+            OV.slot_forces_cuda(*args[:i], bad, *args[i + 1:], blk=plan.blk,
+                                params=params)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiled", [False, True])
+def test_halo_overlap_matches_collective_on_card(rng, dev, tiled):
+    """The halo step on the card with the ring (kernel F) against the
+    boundary gather, from one start with the same samples, three steps:
+    within 2e-5 of the extent on the segment path (test_halo.py:206),
+    2e-3 tiled on weights (the tiles truncate to bf16, the ring does not:
+    test_halo.py:243)."""
+    from graph_embed_tpu_torch.parallel import halo as PH
+    from graph_embed_tpu_torch.parallel.mesh import make_mesh
+
+    g, plan, _, _, _ = _ring_case(rng, dev, 8, 4000)
+    params = ForceAtlasParams(repulsion="sampled", num_negative_samples=64)
+    c0 = torch.rand((g.n, 3), generator=torch.Generator().manual_seed(2))
+    ids = [torch.randint(0, plan.blk // 2, (8, 8), device=dev)
+           for _ in range(3)]
+    kw = dict(mesh=make_mesh(8, device=dev), params=params, iterations=3,
+              coords0=c0, plan=plan, sample_ids=ids, tiled=tiled,
+              device=dev)
+    before = cuda.LAUNCHES["ring_attraction"]
+    a = PH.halo_force_atlas(g, 3, **kw)
+    b = PH.halo_force_atlas(g, 3, overlap=True, **kw)
+    assert cuda.LAUNCHES["ring_attraction"] == before + 3 * 8
+    err = float((a - b).abs().max())
+    assert err <= (2e-3 if tiled else 2e-5) * float(a.abs().max()), err
+
+
+@pytest.mark.cuda
+def test_shard_counts_give_equal_layouts_on_card(rng, dev):
+    """Invariant halo sampling and the sharded embed: 1 and 8 shards give
+    torch.equal layouts on the card (tiled halo: kernel A; the sharded
+    refinement: kernels A and B)."""
+    from graph_embed_tpu_torch.parallel import halo as PH
+    from graph_embed_tpu_torch.parallel.mesh import make_mesh
+
+    g, _, _, _, _ = _ring_case(rng, dev, 1, 3000)
+    params = ForceAtlasParams(repulsion="sampled", num_negative_samples=64)
+    outs = [PH.halo_force_atlas(g, 3, mesh=make_mesh(k, device=dev),
+                                params=params, iterations=10, seed=1,
+                                sample_mode="invariant", tiled=True,
+                                device=dev) for k in (1, 8)]
+    assert torch.equal(outs[0], outs[1])
+    m3 = synth.mesh3d(12)
+    outs = [gp.embed_graph(m3, 3, device=dev, base_iterations=200,
+                           refine_iterations=10, seed=3, mesh_min_n=1,
+                           sharding="halo", mesh=make_mesh(k, device=dev))[0]
+            for k in (1, 8)]
+    assert torch.equal(outs[0], outs[1])

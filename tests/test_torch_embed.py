@@ -101,7 +101,7 @@ def test_force_atlas_warm_start_matches_jax(rng, repulsion):
     want = np.asarray(jflat.force_atlas(gj, 2, coords=jnp.asarray(x0),
                                         params=params, iterations=10))
     got = pflat.force_atlas(g, 2, coords=torch.from_numpy(x0), params=params,
-                            iterations=10).numpy()
+                            iterations=10, device="cpu").numpy()
     _close(got, want, 1e-3)
 
 
@@ -221,13 +221,17 @@ def test_embed_graph_packs_levels_into_parent_balls():
 
 def test_unported_options_raise():
     g = psynth.ring_of_cliques(3, 4)
+    from graph_embed_tpu_torch.parallel.mesh import make_mesh
+
     for kw in ({"store": object()}, {"final_block": object()},
-               {"sharding": "halo"}, {"refine_backend": "portable"}):
+               {"mesh": make_mesh(2, device="cpu")},
+               {"refine_backend": "portable"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             gp.embed_graph(g, 2, device="cpu", **kw)
     # x_precision has no effect on the flat base case, as in the reference
     runs = [gp.force_atlas(g, 2, params=gp.ForceAtlasParams(x_precision=xp),
-                           iterations=5) for xp in ("bf16", "f32")]
+                           iterations=5, device="cpu")
+            for xp in ("bf16", "f32")]
     assert torch.equal(runs[0], runs[1])
 
 

@@ -275,7 +275,8 @@ def test_force_atlas_tiled_stress_matches_jax():
     want = np.asarray(JTL.force_atlas_tiled(gj, 2, params=params,
                                             iterations=300,
                                             key=jax.random.PRNGKey(0)))
-    got = gp.force_atlas_tiled(g, 2, params=params, iterations=300, seed=0)
+    got = gp.force_atlas_tiled(g, 2, params=params, iterations=300, seed=0,
+                               device="cpu")
     assert got.shape == (g.n, 2) and bool(torch.isfinite(got).all())
     sj, sp = layout_stress(gj, want), layout_stress(gj, got.numpy())
     assert abs(sp - sj) <= 0.25 * sj, (sp, sj)
