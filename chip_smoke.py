@@ -28,7 +28,11 @@ Phases, one JSON line each:
             on the rmat graph under linlog.  Every
             output element within RTOL of its own sum of |terms| (kernel D:
             f so, x' against the plain update applied to the kernel's own
-            f); median times from CUDA events;
+            f); each kernel's time the median on the card alone
+            (``device_ms``: the launches enqueued behind a device sleep, so
+            CUDA events see no host dispatch), the host's enqueue time
+            beside it; the plain versions and torch.sparse.mm, which wait
+            on the card inside, by CUDA events around the call;
   entry     ``spmv_windowed`` under each of the reference's variant names
             and ``spmv_windowed_v5``, once each on the slot CSRs, each
             output held to the plain version of the mode it routes to;
@@ -79,7 +83,8 @@ Each path (main, entry, flat per graph, linlog, lj per plan, bf16 embed,
 halo per graph, the sharded embed) is driven with the launch counts set to
 0 just before it and read just after.
 Then the nvidia-smi line, the kernel summary as one JSON object (per
-kernel: launches on its path, error, ms and plain ms as measured, the
+kernel: launches on its path, error, ms on the card alone, host_ms to
+enqueue it, and plain ms as measured, the
 bound from this run's shapes -- the larger of the bytes the function must
 move over 3.35 TB/s and its operations over 67 TFLOP/s of float32, the
 H100 SXM's published peaks -- and the time of one PyTorch call
@@ -301,7 +306,6 @@ def phase_kernels(torch, g, res, dev) -> dict:
     out = {}
     slots = {}
     b_err = []
-    b_ms = b_plain_ms = 0.0
     for level, graph in ((0, g), (1, res.coarse_graphs[0])):
         layout = MT.prepare_refine(graph.to(dev), res.levels[level].to(dev),
                                    params)
@@ -315,14 +319,15 @@ def phase_kernels(torch, g, res, dev) -> dict:
                               dataclasses.replace(csr, w=csr.w.abs()))
         torch.cuda.synchronize()
         err, ratio = scaled_err(got, want, scale)
-        ms = cuda_ms(lambda: ES.spmv_cuda(x, csr))
+        ms, host_ms = device_ms(lambda: ES.spmv_cuda(x, csr))
         plain_ms = cuda_ms(lambda: ES.spmv_plain(x, csr))
         emit(phase="kernels", kernel=name, level=level, rows=csr.n_rows,
              nnz=csr.nnz, max_abs_err=err, max_err_over_scale=ratio,
-             rtol=RTOL, ms=ms, plain_ms=plain_ms)
+             rtol=RTOL, ms=ms, host_ms=host_ms, plain_ms=plain_ms)
         require(ratio <= RTOL, f"{name} agrees with its plain version")
         out[name] = dict(max_abs_err=err, max_err_over_scale=ratio, ms=ms,
-                         plain_ms=plain_ms, **spmv_bound(csr, 3),
+                         host_ms=host_ms, plain_ms=plain_ms,
+                         **spmv_bound(csr, 3),
                          library_ms=library_spmm_ms(torch, csr, x))
         slots[level] = (csr, x)
         if csr.w is None:
@@ -349,7 +354,7 @@ def phase_kernels(torch, g, res, dev) -> dict:
             require(ratio <= RTOL, f"bucket_repulsion S={b.S} agrees with "
                     "its plain version")
             b_err.append((err, ratio))
-        ms = cuda_ms(lambda: MT.exact_repulsion_cuda(
+        ms, host_ms = device_ms(lambda: MT.exact_repulsion_cuda(
             x, layout, params.repel, params.epsilon))
         plain_ms = cuda_ms(lambda: MT.exact_repulsion_plain(
             x, layout, params.repel, params.epsilon), reps=5, warmup=1)
@@ -362,13 +367,14 @@ def phase_kernels(torch, g, res, dev) -> dict:
                         pairs * pair_ops(3))
         emit(phase="kernels", kernel="bucket_repulsion", level=level,
              slots=layout.n_slots, ctas=int(layout.exact_meta.shape[0]),
-             ms=ms, plain_ms=plain_ms, **b_bound)
+             ms=ms, host_ms=host_ms, plain_ms=plain_ms, **b_bound)
         if level == 0:
-            b_ms, b_plain_ms, b0_bound = ms, plain_ms, b_bound
+            b_ms, b_host_ms, b_plain_ms, b0_bound = (ms, host_ms, plain_ms,
+                                                     b_bound)
     out["bucket_repulsion"] = dict(
         max_abs_err=max(e for e, _ in b_err),
         max_err_over_scale=max(r for _, r in b_err), ms=b_ms,
-        plain_ms=b_plain_ms, library_ms=None, **b0_bound)
+        host_ms=b_host_ms, plain_ms=b_plain_ms, library_ms=None, **b0_bound)
     return out, slots
 
 
@@ -385,18 +391,19 @@ def check_bf16x(torch, csr, x, **fields) -> dict:
     torch.cuda.synchronize()
     err, ratio = hold("edge_spmm[bf16x]", got, want, scale, rows=csr.n_rows,
                       nnz=csr.nnz, **fields)
-    res = dict(max_abs_err=err, max_err_over_scale=ratio,
-               ms=cuda_ms(lambda: ES.spmv_bf16x_cuda(xp, csr, d)),
+    ms, host_ms = device_ms(lambda: ES.spmv_bf16x_cuda(xp, csr, d))
+    res = dict(max_abs_err=err, max_err_over_scale=ratio, ms=ms,
+               host_ms=host_ms,
                plain_ms=cuda_ms(lambda: ES.spmv_bf16x_plain(xp, csr, d),
                                 reps=5, warmup=1),
-               unit_ms=cuda_ms(lambda: ES.spmv_cuda(x, csr)),
-               pack_ms=cuda_ms(lambda: ES.pack_x_bf16(x)),
+               unit_ms=device_ms(lambda: ES.spmv_cuda(x, csr))[0],
+               pack_ms=device_ms(lambda: ES.pack_x_bf16(x))[0],
                **spmv_bound(csr, d, x_row_bytes=4 * ((d + 1) // 2)),
                library_ms=library_spmm_ms(torch, csr,
                                           ES.unpack_x_bf16(xp, d)))
     emit(phase="kernels", kernel="edge_spmm[bf16x]", **fields,
-         **{k: res[k] for k in ("ms", "plain_ms", "unit_ms", "pack_ms",
-                                "bound_ms", "library_ms")})
+         **{k: res[k] for k in ("ms", "host_ms", "plain_ms", "unit_ms",
+                                "pack_ms", "bound_ms", "library_ms")})
     return res
 
 
@@ -420,13 +427,13 @@ def phase_lj_kernels(torch, lj: dict, dev) -> dict:
     torch.cuda.synchronize()
     require(not bool(got.any()), "the stream-only mode writes zeros")
     # the unit mode's loads and a written y, no arithmetic
+    ms, host_ms = device_ms(lambda: ES.spmv_null_cuda(x, csr))
     out["edge_spmm[vnull]"] = dict(
-        max_abs_err=0.0, max_err_over_scale=0.0,
-        ms=cuda_ms(lambda: ES.spmv_null_cuda(x, csr)),
+        max_abs_err=0.0, max_err_over_scale=0.0, ms=ms, host_ms=host_ms,
         plain_ms=cuda_ms(lambda: ES.spmv_null_plain(x, csr)),
         **dict(spmv_bound(csr, 3), ops=0), library_ms=None)
     emit(phase="kernels", kernel="edge_spmm[vnull]", graph="community_rmat",
-         rows=csr.n_rows, nnz=csr.nnz, ms=out["edge_spmm[vnull]"]["ms"],
+         rows=csr.n_rows, nnz=csr.nnz, ms=ms, host_ms=host_ms,
          unit_ms=out["edge_spmm[bf16x]"]["unit_ms"],
          bf16x_ms=out["edge_spmm[bf16x]"]["ms"])
 
@@ -440,14 +447,14 @@ def phase_lj_kernels(torch, lj: dict, dev) -> dict:
     err, ratio = hold("edge_spmm[exact]", got, want, scale,
                       graph="community_rmat tiered nohubs", rows=csr.n_rows,
                       nnz=csr.nnz)
+    ms, host_ms = device_ms(lambda: ES.spmv_cuda(x, csr))
     out["edge_spmm[exact]"] = dict(
-        max_abs_err=err, max_err_over_scale=ratio,
-        ms=cuda_ms(lambda: ES.spmv_cuda(x, csr)),
+        max_abs_err=err, max_err_over_scale=ratio, ms=ms, host_ms=host_ms,
         plain_ms=cuda_ms(lambda: ES.spmv_plain(x, csr), reps=5, warmup=1),
         **spmv_bound(csr, 3), library_ms=library_spmm_ms(torch, csr, x))
     emit(phase="kernels", kernel="edge_spmm[exact]",
          graph="community_rmat tiered nohubs",
-         ms=out["edge_spmm[exact]"]["ms"],
+         ms=ms, host_ms=host_ms,
          plain_ms=out["edge_spmm[exact]"]["plain_ms"])
     return out
 
@@ -713,10 +720,13 @@ def phase_flat_kernels(torch, flat: dict, lj: dict, dev) -> dict:
             err, ratio = hold("edge_spmm[unit]", y_res, want, scale,
                               graph=name, rows=tfa.csr.n_rows,
                               nnz=tfa.csr.nnz)
+            ms, host_ms = device_ms(lambda: ES.spmv_cuda(x, tfa.csr))
             emit(phase="kernels", kernel="edge_spmm[unit]", graph=name,
-                 ms=cuda_ms(lambda: ES.spmv_cuda(x, tfa.csr)),
+                 ms=ms, host_ms=host_ms,
                  plain_ms=cuda_ms(lambda: ES.spmv_plain(x, tfa.csr),
-                                  reps=5, warmup=1))
+                                  reps=5, warmup=1),
+                 library_ms=library_spmm_ms(torch, tfa.csr, x),
+                 **spmv_bound(tfa.csr, 3))
             prev = out.get("edge_spmm[unit] flat", dict(
                 max_abs_err=0.0, max_err_over_scale=0.0))
             out["edge_spmm[unit] flat"] = dict(
@@ -737,8 +747,8 @@ def phase_flat_kernels(torch, flat: dict, lj: dict, dev) -> dict:
                           x.abs() + (want_x - x).abs(), graph=name,
                           output="x'")
         d_err.append((err, max(ratio, ratio_x)))
-        ms = cuda_ms(lambda: FS.fa_step_fused_cuda(x, fprev, dia[0], dia[2],
-                                                   y_res, *rest))
+        ms, host_ms = device_ms(lambda: FS.fa_step_fused_cuda(
+            x, fprev, dia[0], dia[2], y_res, *rest))
         plain_ms = cuda_ms(lambda: FS.fa_step_fused_plain(
             x, fprev, dia[0], dia[1], y_res, *rest), reps=5, warmup=1)
         # x, f_prev, the DIA weights, y_res, the row sums and degrees and
@@ -752,10 +762,11 @@ def phase_flat_kernels(torch, flat: dict, lj: dict, dev) -> dict:
             + (n * 3 if y_res is not None else 0))
         emit(phase="kernels", kernel="fused_step", graph=name, n=g.n,
              dia_offsets=len(tfa.dia_offsets), y_res=y_res is not None,
-             ms=ms, plain_ms=plain_ms, **d_bound)
+             ms=ms, host_ms=host_ms, plain_ms=plain_ms, **d_bound)
         if "fused_step" not in out:
-            out["fused_step"] = dict(ms=ms, plain_ms=plain_ms,
-                                     library_ms=None, **d_bound)
+            out["fused_step"] = dict(ms=ms, host_ms=host_ms,
+                                     plain_ms=plain_ms, library_ms=None,
+                                     **d_bound)
     out["fused_step"].update(max_abs_err=max(e for e, _ in d_err),
                              max_err_over_scale=max(r for _, r in d_err))
 
@@ -773,9 +784,9 @@ def phase_flat_kernels(torch, flat: dict, lj: dict, dev) -> dict:
     # clamp, log1p and divide, the weight and attract products (6) and
     # d multiply-adds
     csr = tfa.csr
+    ms, host_ms = device_ms(lambda: ES.linlog_cuda(x, tfa.csr, **kw))
     out["edge_linlog"] = dict(
-        max_abs_err=err, max_err_over_scale=ratio,
-        ms=cuda_ms(lambda: ES.linlog_cuda(x, tfa.csr, **kw)),
+        max_abs_err=err, max_err_over_scale=ratio, ms=ms, host_ms=host_ms,
         plain_ms=cuda_ms(lambda: ES.linlog_plain(x, tfa.csr, **kw), reps=5,
                          warmup=1),
         **bound(spmv_bound(csr, 3)["bytes"], csr.nnz * (5 * 3 + 6)),
@@ -790,10 +801,10 @@ def phase_flat_kernels(torch, flat: dict, lj: dict, dev) -> dict:
     torch.cuda.synchronize()
     err, ratio = hold("sampled_repulsion", got, want, scale,
                       graph="rmat(20,8)", n=g.n, samples=FLAT_SAMPLES)
+    ms, host_ms = device_ms(lambda: RP.repulsion_sampled_cuda(
+        x, tfa.deg_p1, idx, **kw))
     out["sampled_repulsion"] = dict(
-        max_abs_err=err, max_err_over_scale=ratio,
-        ms=cuda_ms(lambda: RP.repulsion_sampled_cuda(x, tfa.deg_p1, idx,
-                                                     **kw)),
+        max_abs_err=err, max_err_over_scale=ratio, ms=ms, host_ms=host_ms,
         plain_ms=cuda_ms(lambda: RP.repulsion_sampled_plain(
             x, tfa.deg_p1, idx, **kw), reps=5, warmup=1),
         **bound(4 * g.n * (3 + 1 + 3) + 4 * FLAT_SAMPLES,
@@ -801,7 +812,7 @@ def phase_flat_kernels(torch, flat: dict, lj: dict, dev) -> dict:
         library_ms=None)
     for name in ("edge_linlog", "sampled_repulsion"):
         emit(phase="kernels", kernel=name, graph="rmat(20,8)",
-             ms=out[name]["ms"], plain_ms=out[name]["plain_ms"])
+             **{k: out[name][k] for k in ("ms", "host_ms", "plain_ms")})
     return out
 
 
@@ -1176,7 +1187,8 @@ def phase_halo(torch, lj: dict, dev) -> dict:
                                                             / 1e3))
         if name == "community":
             out = dict(max_abs_err=err, max_err_over_scale=ratio, ms=ms,
-                       plain_ms=plain_ms, library_ms=None, **f_bound,
+                       host_ms=host_ms, plain_ms=plain_ms, library_ms=None,
+                       **f_bound,
                        launches=paths[0].get("ring_attraction", 0))
     return out
 
@@ -1328,7 +1340,8 @@ def main() -> int:
                     launches=int(launches[name]),
                     **{k: kernels[name][k] for k in (
                         "max_abs_err", "max_err_over_scale", "ms",
-                        "plain_ms", "bound_ms", "bound_by", "library_ms")})
+                        "host_ms", "plain_ms", "bound_ms", "bound_by",
+                        "library_ms")})
                for name, (src, rep) in sources.items()]
     print(smi)
     print(json.dumps({"kernels": summary}))

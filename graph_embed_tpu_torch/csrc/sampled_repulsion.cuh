@@ -1,5 +1,6 @@
-// The sampled repulsion estimator of one vertex, shared by kernel C
-// (repulsion.cu) and kernel D (fused_step.cu).
+// The sampled repulsion estimator of one vertex, kernel C's
+// (repulsion.cu).  Kernel D (fused_step.cu) runs the same arithmetic in
+// the same order over several vertices per thread.
 //
 // Counterpart of graph_embed_tpu/ops/pallas/repulsion.py:_rep_math (:37):
 // over s shared samples j (ids idx_j, drawn with replacement; coordinates

@@ -38,6 +38,9 @@ COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 # CTA table is cut in these steps, and ``library`` checks that the built
 # kernel agrees
 BUCKET_TILE = 256
+# kernel A's hub rows: rows of more entries than this get a block of their
+# own (HUB_ROW in csrc/edge_spmm.cu; ops/edge_spmm.py lists them)
+SPMV_HUB_ROW = 2048
 
 LAUNCHES: collections.Counter = collections.Counter()
 
@@ -109,6 +112,35 @@ def build() -> str:
     return "".join(report)
 
 
+def declare(lib) -> None:
+    """Set the C signatures of the kernel entry points on a loaded
+    library."""
+    p = ctypes.c_void_p
+    f = ctypes.c_float
+    i = ctypes.c_int
+    lib.ge_edge_spmm.restype = i
+    lib.ge_edge_spmm.argtypes = [i, i, p, p, p, p, p, p, i, p, p]
+    for fn in (lib.ge_edge_spmm_bf16x, lib.ge_edge_spmm_null):
+        fn.restype = i
+        fn.argtypes = [i, i, p, p, p, p, p, i, p, p]
+    lib.ge_bucket_repulsion.restype = i
+    lib.ge_bucket_repulsion.argtypes = [i, i, p, p, p, p, f, f, p]
+    lib.ge_edge_linlog.restype = i
+    lib.ge_edge_linlog.argtypes = [i, i, p, p, p, p, p, f, f, p]
+    lib.ge_sampled_repulsion.restype = i
+    lib.ge_sampled_repulsion.argtypes = [i, i, i, p, p, p, f, f, p, p]
+    lib.ge_fused_step.restype = i
+    lib.ge_fused_step.argtypes = [i, i, i, i, p, p, p, p, p, p, p, p,
+                                  f, f, f, f, f, f, f, p, p, p]
+    lib.ge_ring_attraction.restype = i
+    lib.ge_ring_attraction.argtypes = [
+        i, i, i, i, i, p, p, p, p, p, p, p, f, f, f, i, i, i, p, p]
+    lib.ge_error_string.restype = ctypes.c_char_p
+    lib.ge_error_string.argtypes = [i]
+    lib.ge_bucket_tile.restype = i
+    lib.ge_bucket_tile.argtypes = []
+
+
 def library():
     """The loaded kernel library (built on first call)."""
     global _LIB
@@ -116,41 +148,18 @@ def library():
         if _LIB is None:
             build()
             lib = ctypes.CDLL(LIB_PATH)
-            p = ctypes.c_void_p
-            lib.ge_edge_spmm.restype = ctypes.c_int
-            lib.ge_edge_spmm.argtypes = [ctypes.c_int, ctypes.c_int,
-                                         p, p, p, p, p, p]
-            for fn in (lib.ge_edge_spmm_bf16x, lib.ge_edge_spmm_null):
-                fn.restype = ctypes.c_int
-                fn.argtypes = [ctypes.c_int, ctypes.c_int, p, p, p, p, p]
-            lib.ge_bucket_repulsion.restype = ctypes.c_int
-            lib.ge_bucket_repulsion.argtypes = [
-                ctypes.c_int, ctypes.c_int, p, p, p, p,
-                ctypes.c_float, ctypes.c_float, p]
-            f = ctypes.c_float
-            lib.ge_edge_linlog.restype = ctypes.c_int
-            lib.ge_edge_linlog.argtypes = [ctypes.c_int, ctypes.c_int,
-                                           p, p, p, p, p, f, f, p]
-            lib.ge_sampled_repulsion.restype = ctypes.c_int
-            lib.ge_sampled_repulsion.argtypes = [
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, p, p, p, f, f, p,
-                p]
-            lib.ge_fused_step.restype = ctypes.c_int
-            lib.ge_fused_step.argtypes = [
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                p, p, p, p, p, p, p, p, f, f, f, f, f, f, f, p, p, p]
-            i = ctypes.c_int
-            lib.ge_ring_attraction.restype = i
-            lib.ge_ring_attraction.argtypes = [
-                i, i, i, i, i, p, p, p, p, p, p, p, f, f, f, i, i, i, p, p]
-            lib.ge_error_string.restype = ctypes.c_char_p
-            lib.ge_error_string.argtypes = [ctypes.c_int]
-            lib.ge_bucket_tile.restype = ctypes.c_int
-            lib.ge_bucket_tile.argtypes = []
+            declare(lib)
             if lib.ge_bucket_tile() != BUCKET_TILE:
                 raise RuntimeError(
                     f"kernel B was built with {lib.ge_bucket_tile()} slots "
                     f"per CTA, the layout cuts {BUCKET_TILE}")
+            lib.ge_spmv_hub_row.restype = ctypes.c_int
+            lib.ge_spmv_hub_row.argtypes = []
+            if lib.ge_spmv_hub_row() != SPMV_HUB_ROW:
+                raise RuntimeError(
+                    f"kernel A was built with hubs above "
+                    f"{lib.ge_spmv_hub_row()} entries, the plan lists "
+                    f"those above {SPMV_HUB_ROW}")
             _LIB = lib
     return _LIB
 

@@ -25,6 +25,11 @@ per 32-bit word (``pack_x_bf16``; kernel A's bf16x mode, the reference's
 reference's variant names and routes each onto one of these modes; the
 stream-only ``vnull`` mode is its diagnostic floor.
 
+Kernel A walks tiles of consecutive rows, a thread or a warp per row, and
+gives each hub row (more than ``cuda.SPMV_HUB_ROW`` entries) a block of
+its own; the hub list is the CSR's one piece of plan (``plan_hub_rows``),
+built with it.
+
 Kernel E is the linlog attraction of edge_spmm.py:attraction_tiled
 (:240, body ``_attraction_kernel`` :203): per stored entry the distance,
 ``attract * c_e * log1p(d)/d * (x_col - x_row)``, summed per row with the
@@ -67,7 +72,9 @@ class EdgeCSR:
     ``exact``: the weights are the reference's exact float32 weight plane
     (its 'wide' packing) rather than its truncated bf16 words.
     ``bf16_gather``: the reference's dispatch would take the bf16-pair
-    gather for this unit CSR under ``x_precision='bf16'``."""
+    gather for this unit CSR under ``x_precision='bf16'``.
+    ``hub_rows``: kernel A's plan, built with the CSR from ``indptr`` on
+    its device when not given (``plan_hub_rows``)."""
 
     indptr: torch.Tensor
     col: torch.Tensor
@@ -76,6 +83,12 @@ class EdgeCSR:
     n_cols: int
     exact: bool = False
     bf16_gather: bool = False
+    hub_rows: torch.Tensor | None = None
+
+    def __post_init__(self):
+        if self.hub_rows is None:
+            object.__setattr__(self, "hub_rows",
+                               plan_hub_rows(self.indptr))
 
     @property
     def nnz(self) -> int:
@@ -91,6 +104,19 @@ class EdgeCSR:
         if self.w is None:
             return "unit"
         return "exact" if self.exact else "weighted"
+
+
+def plan_hub_rows(indptr: torch.Tensor) -> torch.Tensor:
+    """Kernel A's plan of a CSR: the ids, ascending, of its rows of more
+    than ``cuda.SPMV_HUB_ROW`` entries, as [n_hubs] int32 on ``indptr``'s
+    device.  Each such row gets a block of its own; every other row is
+    summed in its tile of consecutive rows.  A row's class depends on its
+    length alone, never on where it starts.  Built once with the CSR, from
+    the host (``build_csr``) or the device (``segment.sorted_csr``) row
+    pointers alike; on the device it waits once for the count."""
+    lens = indptr[1:] - indptr[:-1]
+    hubs = torch.nonzero(lens > cuda.SPMV_HUB_ROW).flatten()
+    return hubs.to(torch.int32)
 
 
 def truncate_bf16(w) -> np.ndarray:
@@ -131,11 +157,13 @@ def build_csr(rows, cols, w, n_rows: int, n_cols: int | None = None, *,
         wt = torch.from_numpy(w32).to(device)
         deg = np.bincount(rows, weights=w32.astype(np.float64),
                           minlength=n_rows).astype(np.float32)
-    csr = EdgeCSR(indptr=torch.from_numpy(indptr).to(device),
+    host_indptr = torch.from_numpy(indptr)
+    csr = EdgeCSR(indptr=host_indptr.to(device),
                   col=torch.from_numpy(cols.astype(np.int32)).to(device),
                   w=wt, n_rows=int(n_rows), n_cols=int(n_cols),
                   exact=bool(exact and w is not None),
-                  bf16_gather=bool(bf16_gather and w is None))
+                  bf16_gather=bool(bf16_gather and w is None),
+                  hub_rows=plan_hub_rows(host_indptr).to(device))
     return csr, torch.from_numpy(deg).to(device)
 
 
@@ -156,6 +184,20 @@ def spmv_plain(x: torch.Tensor, csr: EdgeCSR) -> torch.Tensor:
     return y.index_add_(0, rows, vals)
 
 
+def _plan(csr: EdgeCSR, d: int) -> tuple:
+    """Kernel A's plan arguments, (hub rows, their count, the hub blocks'
+    staging buffer), and that buffer, to be held until the launch: CHUNK =
+    ``cuda.SPMV_HUB_ROW`` entries of d floats per hub block, per call."""
+    n = int(csr.hub_rows.shape[0])
+    if not n:
+        return (None, 0, None), None
+    if csr.hub_rows.device != csr.device:
+        raise ValueError("kernel A's hub rows lie on another device")
+    stage = torch.empty(n * cuda.SPMV_HUB_ROW * d, dtype=torch.float32,
+                        device=csr.device)
+    return (csr.hub_rows.data_ptr(), n, stage.data_ptr()), stage
+
+
 def spmv_cuda(x: torch.Tensor, csr: EdgeCSR) -> torch.Tensor:
     """Kernel A on the card: y = A x for float32 [n_cols, d <= 4] x (unit
     mode without weights, weighted mode with them; an exact CSR counts as
@@ -165,11 +207,12 @@ def spmv_cuda(x: torch.Tensor, csr: EdgeCSR) -> torch.Tensor:
                     device=x.device)
     if csr.n_rows == 0:
         return y
+    plan, _stage = _plan(csr, x.shape[1])
     with torch.cuda.device(x.device):
         rc = cuda.library().ge_edge_spmm(
             csr.n_rows, x.shape[1], csr.indptr.data_ptr(),
             csr.col.data_ptr(), None if csr.w is None else csr.w.data_ptr(),
-            x.data_ptr(), y.data_ptr(), cuda.stream_of(x))
+            x.data_ptr(), y.data_ptr(), *plan, cuda.stream_of(x))
     cuda.check(rc, "edge_spmm")
     cuda.LAUNCHES[f"edge_spmm[{csr.kind}]"] += 1
     return y
@@ -236,10 +279,11 @@ def spmv_bf16x_cuda(xp: torch.Tensor, csr: EdgeCSR, d: int) -> torch.Tensor:
     y = torch.empty((csr.n_rows, d), dtype=torch.float32, device=xp.device)
     if csr.n_rows == 0:
         return y
+    plan, _stage = _plan(csr, d)
     with torch.cuda.device(xp.device):
         rc = cuda.library().ge_edge_spmm_bf16x(
             csr.n_rows, d, csr.indptr.data_ptr(), csr.col.data_ptr(),
-            xp.data_ptr(), y.data_ptr(), cuda.stream_of(xp))
+            xp.data_ptr(), y.data_ptr(), *plan, cuda.stream_of(xp))
     cuda.check(rc, "edge_spmm_bf16x")
     cuda.LAUNCHES["edge_spmm[bf16x]"] += 1
     return y
@@ -267,10 +311,12 @@ def spmv_null_cuda(x: torch.Tensor, csr: EdgeCSR) -> torch.Tensor:
                     device=x.device)
     if csr.n_rows == 0:
         return y
+    plan, _stage = _plan(csr, x.shape[1])
     with torch.cuda.device(x.device):
         rc = cuda.library().ge_edge_spmm_null(
             csr.n_rows, x.shape[1], csr.indptr.data_ptr(),
-            csr.col.data_ptr(), x.data_ptr(), y.data_ptr(), cuda.stream_of(x))
+            csr.col.data_ptr(), x.data_ptr(), y.data_ptr(), *plan,
+            cuda.stream_of(x))
     cuda.check(rc, "edge_spmm_null")
     cuda.LAUNCHES["edge_spmm[vnull]"] += 1
     return y

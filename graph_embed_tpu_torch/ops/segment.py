@@ -5,9 +5,9 @@ Counterpart of graph_embed_tpu/ops/segment.py.  JAX's
 PyTorch spelling, but on CUDA it adds with atomics in an order that changes
 from run to run.  Here a segment sum is ``y = A v`` over a CSR whose rows
 are the segments and whose columns index the value array, all weights 1:
-kernel A's unit mode on a CUDA tensor (a thread, or a warp for a segment
-of more than 32 values, owns one segment and adds its values in a fixed
-order), its plain version on a CPU tensor.  The CSR is
+kernel A's unit mode on a CUDA tensor (a thread, a warp for a segment of
+more than 32 values, or a block for a hub segment, owns one segment and
+adds its values in a fixed order), its plain version on a CPU tensor.  The CSR is
 built once per level on the host (``segment_csr``) or, for values already
 grouped by segment, straight from the row pointers (``sorted_csr``).
 """

@@ -600,3 +600,164 @@ def test_shard_counts_give_equal_layouts_on_card(rng, dev):
                            sharding="halo", mesh=make_mesh(k, device=dev))[0]
             for k in (1, 8)]
     assert torch.equal(outs[0], outs[1])
+
+
+# kernel A's walk: rows longer than a chunk are hubs, gathered a chunk at
+# a time by a block each
+CHUNK = cuda.SPMV_HUB_ROW
+A_MODES = ("unit", "weighted", "exact", "bf16x", "null")
+# row lengths: empty rows, rows that straddle a chunk's length of the CSR
+# (the 69th row of 30 entries crosses entry 2048, the row of 120 crosses
+# 4096), warp-summed rows, hubs back to back that straddle a chunk, a hub
+# longer than several chunks
+STRADDLE = ([30] * 69 + [32] * 60 + [120] + [0] * 3 + [CHUNK + 1] * 2
+            + [40] * 10 + [0] + [3 * CHUNK + 17] + [7] * 5)
+A_SHAPES = {
+    "one empty row": [0],
+    "one short row": [17],
+    "one row of several chunks": [3 * CHUNK + 17],
+    "a block plus one": [(0, 5, 31, 32, 33, 100, CHUNK, CHUNK + 1)[i % 8]
+                         for i in range(257)],
+    "rows across chunks": STRADDLE,
+}
+
+
+def _lengths_csr(rng, lengths, n_cols, mode, dev, cols=None):
+    """A CSR with the given row lengths and random columns (or ``cols``)
+    in the kind ``mode`` runs on; returns (csr, cols, weights)."""
+    lengths = np.asarray(lengths, np.int64)
+    rows = np.repeat(np.arange(lengths.size), lengths)
+    if cols is None:
+        cols = rng.integers(0, n_cols, rows.size)
+    w = None
+    if mode in ("weighted", "exact"):
+        w = ES.truncate_bf16(0.5 + (cols % 13) / 8.0)
+    csr, _ = ES.build_csr(rows, cols, w, lengths.size, n_cols, device=dev,
+                          exact=mode == "exact")
+    return csr, cols, w
+
+
+def _run_mode(mode, x, csr):
+    """(kernel A's output in ``mode``, the plain version's, each element's
+    sum of |terms|)."""
+    d = x.shape[1]
+    if mode == "bf16x":
+        xp = ES.pack_x_bf16(x)
+        xf = ES.unpack_x_bf16(xp, d)
+        return (ES.spmv_bf16x(xp, csr, d), ES.spmv_plain(xf, csr),
+                ES.spmv_plain(xf.abs(), csr))
+    if mode == "null":
+        return (ES.spmv_null(x, csr), ES.spmv_null_plain(x, csr),
+                torch.zeros((csr.n_rows, d), device=x.device))
+    wabs = csr if csr.w is None else dataclasses.replace(csr, w=csr.w.abs())
+    return ES.spmv(x, csr), ES.spmv_plain(x, csr), ES.spmv_plain(x.abs(),
+                                                                 wabs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(A_SHAPES))
+@pytest.mark.parametrize("d", [1, 2, 3, 4])
+@pytest.mark.parametrize("mode", A_MODES)
+def test_kernel_a_walk_matches_plain(rng, dev, mode, d, shape):
+    """Every mode of kernel A on empty rows, rows that straddle a chunk,
+    a row of several chunks, one row and a block of rows plus one, against
+    its plain version: each element within 1e-5 of its own sum of |terms|
+    (zeros in the stream-only mode), one launch, bitwise repeatable."""
+    n_cols = 3000
+    csr, _, _ = _lengths_csr(rng, A_SHAPES[shape], n_cols,
+                             "unit" if mode in ("bf16x", "null") else mode,
+                             dev)
+    x = torch.from_numpy(rng.uniform(-1, 1, (n_cols, d)).astype(
+        np.float32)).to(dev)
+    name = f"edge_spmm[{'vnull' if mode == 'null' else mode}]"
+    before = cuda.LAUNCHES[name]
+    got, want, scale = _run_mode(mode, x, csr)
+    assert cuda.LAUNCHES[name] == before + 1
+    torch.cuda.synchronize()
+    if mode == "null":
+        assert not got.any()
+    else:
+        _assert_within_scale(got, want, scale)
+    assert torch.equal(_run_mode(mode, x, csr)[0], got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ("unit", "weighted", "bf16x"))
+def test_kernel_a_sums_do_not_depend_on_where_a_row_starts(rng, dev, mode):
+    """The same rows at different offsets of two CSRs (77 rows, a hub among
+    them, prepended to the second) give torch.equal sums: a row's sum
+    depends on its own entries alone, not on its tile or chunk."""
+    n_cols, d = 3000, 3
+    base = "unit" if mode == "bf16x" else mode
+    csr, cols, _ = _lengths_csr(rng, STRADDLE, n_cols, base, dev)
+    head = [int(v) for v in rng.integers(0, 60, 77)]
+    head[40] = CHUNK + 333
+    pre = rng.integers(0, n_cols, sum(head))
+    shifted, _, _ = _lengths_csr(rng, head + STRADDLE, n_cols, base, dev,
+                                 cols=np.concatenate([pre, cols]))
+    assert int(shifted.hub_rows.shape[0]) == int(csr.hub_rows.shape[0]) + 1
+    x = torch.from_numpy(rng.uniform(-1, 1, (n_cols, d)).astype(
+        np.float32)).to(dev)
+    a = _run_mode(mode, x, csr)[0]
+    b = _run_mode(mode, x, shifted)[0]
+    assert torch.equal(b[len(head):], a)
+
+
+@pytest.mark.cuda
+def test_kernel_a_plan_from_device_row_pointers(rng, dev):
+    """``segment.sorted_csr`` builds the hub list on the device from
+    device row pointers: the same list as the host build, and the same
+    segment sums."""
+    lengths = np.asarray(STRADDLE, np.int64)
+    seg = np.repeat(np.arange(lengths.size), lengths)
+    host = segment.segment_csr(seg, lengths.size, device=dev)
+    indptr = torch.from_numpy(np.concatenate([[0], np.cumsum(lengths)]))
+    sorted_ = segment.sorted_csr(indptr.to(dev), seg.size)
+    assert sorted_.hub_rows.device == host.hub_rows.device
+    assert torch.equal(sorted_.hub_rows, host.hub_rows)
+    vals = torch.from_numpy(rng.uniform(-1, 1, (seg.size, 2)).astype(
+        np.float32)).to(dev)
+    assert torch.equal(segment.segment_sum(vals, sorted_),
+                       segment.segment_sum(vals, host))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [7, 64, 300])
+@pytest.mark.parametrize("k", [0, 32])
+def test_kernel_d_tiles_offsets_and_samples(rng, dev, s, k):
+    """Kernel D on n = 2 * 1024 + 37 vertices (not a multiple of its
+    1024-vertex tile), K = 0 or 32 DIA offsets, s = 7, 64 or 300 samples
+    (one staging pass or two), ids that hit the vertex itself: f within
+    1e-5 of its own sum of |terms|, x' against the plain update on the
+    kernel's own f, bitwise repeatable."""
+    n, d = 2 * 1024 + 37, 3
+    params = ForceAtlasParams(repulsion="sampled", num_negative_samples=s)
+
+    def rand(*shape, lo=-1.0, hi=1.0):
+        return torch.from_numpy(rng.uniform(lo, hi, shape).astype(
+            np.float32)).to(dev)
+
+    x, fprev, y_res = rand(n, d), rand(n, d), rand(n, d)
+    deg_w, deg_p1 = rand(n, lo=0.5, hi=4.0), rand(n, lo=1.0, hi=9.0)
+    offsets = tuple(int(o) for o in rng.choice(
+        np.concatenate([np.arange(-n + 1, 0), np.arange(1, n)]), k,
+        replace=False))
+    dia_w = rand(k, n, lo=0.5, hi=2.0) if k else None
+    dia_off = torch.tensor(offsets, dtype=torch.int32, device=dev)
+    ids = rng.integers(0, n, s)
+    ids[: min(s, 4)] = [0, n - 1, 1024, 5][: min(s, 4)]
+    idx = torch.from_numpy(ids.astype(np.int32)).to(dev)
+    rest = (deg_w, deg_p1, idx, params)
+    before = cuda.LAUNCHES["fused_step"]
+    got_x, got_f = FS.fa_step_fused_cuda(x, fprev, dia_w, dia_off, y_res,
+                                         *rest)
+    assert cuda.LAUNCHES["fused_step"] == before + 1
+    plain = (dia_w, offsets, y_res, *rest)
+    want_f = FS.step_forces_plain(x, *plain)
+    scale = FS.step_forces_plain(x, *plain, absolute=True)
+    want_x = FS.speed_update(x, got_f, fprev, params)
+    torch.cuda.synchronize()
+    _assert_within_scale(got_f, want_f, scale)
+    _assert_within_scale(got_x, want_x, x.abs() + (want_x - x).abs())
+    again = FS.fa_step_fused_cuda(x, fprev, dia_w, dia_off, y_res, *rest)
+    assert torch.equal(again[0], got_x) and torch.equal(again[1], got_f)
