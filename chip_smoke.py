@@ -21,7 +21,9 @@ Phases, one JSON line each:
   kernels   every kernel against its plain PyTorch version on the card, at
             the shapes its path gives it: kernel A (unit, weighted, bf16x)
             and kernel B on the level-0 slot layout of mesh3d(128) and its
-            first Galerkin level; kernel A (unit, bf16x, stream-only) on the
+            first Galerkin level (B also one size class at a time, with
+            each class's slots, members and pairs); kernel A (unit, bf16x,
+            stream-only) on the
             community graph's residual CSR, exact on its weighted tiered
             CSR; kernel D on both flat graphs and the community graph (with
             kernel A's residual y_res where there is one); kernels E and C
@@ -358,16 +360,19 @@ def phase_kernels(torch, g, res, dev) -> dict:
             x, layout, params.repel, params.epsilon))
         plain_ms = cuda_ms(lambda: MT.exact_repulsion_plain(
             x, layout, params.repel, params.epsilon), reps=5, warmup=1)
-        # member pairs of the exact buckets; x and the weights read once,
-        # the CTA table once, the forces written once
-        pairs = sum(int((b.counts * (b.counts - 1)).sum())
-                    for b in layout.buckets if not b.sampled)
-        b_bound = bound(layout.n_slots * (12 + 4 + 12)
+        # member pairs of the exact buckets; the members' x and weights
+        # read once, the task table once, every exact slot's force written
+        # once
+        exact = [b_class_counts(b) for b in layout.buckets if not b.sampled]
+        pairs = sum(c["member_pairs"] for c in exact)
+        b_bound = bound(sum(16 * c["member_slots"] + 12 * c["slots"]
+                            for c in exact)
                         + 16 * layout.exact_meta.shape[0],
                         pairs * pair_ops(3))
         emit(phase="kernels", kernel="bucket_repulsion", level=level,
-             slots=layout.n_slots, ctas=int(layout.exact_meta.shape[0]),
+             slots=layout.n_slots, table_rows=int(layout.exact_meta.shape[0]),
              ms=ms, host_ms=host_ms, plain_ms=plain_ms, **b_bound)
+        b_classes(torch, layout, x, params, level)
         if level == 0:
             b_ms, b_host_ms, b_plain_ms, b0_bound = (ms, host_ms, plain_ms,
                                                      b_bound)
@@ -376,6 +381,50 @@ def phase_kernels(torch, g, res, dev) -> dict:
         max_err_over_scale=max(r for _, r in b_err), ms=b_ms,
         host_ms=b_host_ms, plain_ms=b_plain_ms, library_ms=None, **b0_bound)
     return out, slots
+
+
+def b_class_counts(b) -> dict:
+    """One bucket's slots and member slots; the pairs a kernel evaluates
+    that runs every slot against every slot of its aggregate, those one
+    that runs members against members evaluates, and the member pairs
+    (i != j)."""
+    c = b.counts.double()
+    return dict(S=b.S, aggregates=b.m_b, slots=b.m_b * b.S,
+                member_slots=int(c.sum()), pairs_all_slots=b.m_b * b.S * b.S,
+                pairs_members=int((c * c).sum()),
+                member_pairs=int((c * (c - 1)).sum()))
+
+
+def class_table(layout, S: int):
+    """The layout with kernel B's table restricted to one size class
+    (column 1 of every table row holds its class, negated in the rows that
+    write zeros)."""
+    import dataclasses
+
+    meta = layout.exact_meta
+    return dataclasses.replace(
+        layout, exact_meta=meta[meta[:, 1].abs() == S].contiguous())
+
+
+def b_classes(torch, layout, x, params, level: int) -> list:
+    """Kernel B on one size class at a time (``class_table``), timed on the
+    card alone, beside the class's counts (``b_class_counts``).  One JSON
+    line per class; returns them."""
+    from graph_embed_tpu_torch.forceatlas import multilevel_tiled as MT
+
+    lines = []
+    for b in layout.buckets:
+        if b.sampled:
+            continue
+        one = class_table(layout, b.S)
+        ms, host_ms = device_ms(lambda: MT.exact_repulsion_cuda(
+            x, one, params.repel, params.epsilon))
+        line = dict(phase="kernels", kernel="bucket_repulsion class",
+                    level=level, table_rows=int(one.exact_meta.shape[0]),
+                    **b_class_counts(b), ms=ms, host_ms=host_ms)
+        emit(**line)
+        lines.append(line)
+    return lines
 
 
 def check_bf16x(torch, csr, x, **fields) -> dict:

@@ -74,10 +74,22 @@
 // graph_embed_tpu/ops/pallas/edge_spmm.py:attraction_tiled (:240), body
 // _attraction_kernel (:203), which gathers both endpoints of each
 // (sender block, receiver block) tile through one-hot matmuls at HIGHEST
-// precision and scatters the contributions back the same way.  Here rows
-// are walked one thread per row (row_sum_kernel), rows of more than
-// LONG_ROW entries by the whole warp, with x[i] kept in registers.  Bound:
-// bytes as for kernel A plus one sqrt, one log1p and one divide per entry.
+// precision and scatters the contributions back the same way.  Bound:
+// bytes as for kernel A's weighted mode (plus x[i] once per row); per
+// entry one sqrt, one log1p and one IEEE divide besides.  E walks the CSR
+// as kernel A does, in functions of its own (linlog_*), so that kernel A's
+// code stays as it was: tile blocks of TILE_ROWS rows, a thread per row of
+// at most LONG_ROW entries with SHORT_BATCH gathers in flight, a warp per
+// longer row under the lane rule with LANE_BATCH per lane, a block per hub
+// row (the CSR's ``hub_rows``), hub blocks first.  x[i] is the row's own
+// state: read by the row's thread, shuffled to its warp, read by every
+// thread of a hub block.  A hub block's threads compute the factors of
+// each term of a CHUNK (the d components of diff and coef, each by the
+// expression of the other paths) and stage them, and warp 0 adds
+// diff * coef with one FMA per component under the lane rule: the same
+// rounding as the warp walk, whose acc += diff * coef is an FMA.  So a
+// row's sum depends on its own entries alone, whatever its class, and is
+// bitwise the sum of a thread-per-row walk with warp-shared long rows.
 
 #include <cuda_runtime.h>
 
@@ -340,103 +352,228 @@ void launch(int n_rows, const int* indptr, const int* col, const float* w,
   }
 }
 
-// kernel E's term: attract * c_e * log1p(d)/d * (x[col_e] - x[i])
+
+// ---------------------------------------------------------------------------
+// Kernel E on kernel A's walk
+
+// kernel E's source of entries: the term attract * c_e * log1p(d)/d *
+// (x[col_e] - x[i]) of each, x[i] the row's state; ``gather`` as kernel
+// A's (kept apart so that kernel A's code compiles as it did), ``stage``
+// and ``add_staged`` the term in two halves through a hub pass (kStage
+// floats per entry)
 template <int D>
-struct LinlogTerm {
-  static constexpr bool kRowState = true;
-  const int* col;
-  const float* w;
+struct LinlogRows {
+  static constexpr int kStage = D + 1;      // diff, then coef
   const float* x;
+  const float* w;
   float attract;
   float eps;
 
-  __device__ __forceinline__ void add(const float (&xi)[D], int e,
-                                      float (&acc)[D]) const {
-    const float* xj = x + static_cast<size_t>(__ldg(col + e)) * D;
-    float diff[D];
+  __device__ __forceinline__ void gather(int c, float (&v)[D]) const {
+    const float* xj = x + static_cast<size_t>(c) * D;
+    if constexpr (D == 4) {
+      const float4 q = __ldg(reinterpret_cast<const float4*>(xj));
+      v[0] = q.x;
+      v[1] = q.y;
+      v[2] = q.z;
+      v[D - 1] = q.w;
+    } else if constexpr (D == 2) {
+      const float2 q = __ldg(reinterpret_cast<const float2*>(xj));
+      v[0] = q.x;
+      v[D - 1] = q.y;
+    } else {
+#pragma unroll
+      for (int k = 0; k < D; ++k) v[k] = __ldg(xj + k);
+    }
+  }
+
+  __device__ __forceinline__ float weight(int e) const { return __ldg(w + e); }
+
+  __device__ __forceinline__ void row_state(int row, float (&xi)[D]) const {
+    gather(row, xi);
+  }
+
+  // the term's factors: diff = v - xi and its coefficient
+  __device__ __forceinline__ float factors(float c, const float (&v)[D],
+                                           const float (&xi)[D],
+                                           float (&diff)[D]) const {
     float d2 = 0.f;
 #pragma unroll
     for (int k = 0; k < D; ++k) {
-      diff[k] = __ldg(xj + k) - xi[k];
+      diff[k] = v[k] - xi[k];
       d2 += diff[k] * diff[k];
     }
     const float dist = fmaxf(sqrtf(d2), eps);
-    const float coef = attract * __ldg(w + e) * log1pf(dist) / dist;
+    return attract * c * log1pf(dist) / dist;
+  }
+
+  __device__ __forceinline__ void add(float c, const float (&v)[D],
+                                      const float (&xi)[D],
+                                      float (&acc)[D]) const {
+    float diff[D];
+    const float coef = factors(c, v, xi, diff);
 #pragma unroll
-    for (int k = 0; k < D; ++k) acc[k] += diff[k] * coef;
+    for (int k = 0; k < D; ++k) acc[k] = fmaf(diff[k], coef, acc[k]);
+  }
+
+  __device__ __forceinline__ void stage(int e, const float (&v)[D],
+                                        const float (&xi)[D],
+                                        float* s) const {
+    float diff[D];
+    s[D] = factors(weight(e), v, xi, diff);
+#pragma unroll
+    for (int k = 0; k < D; ++k) s[k] = diff[k];
+  }
+
+  __device__ __forceinline__ void add_staged(int, const float* s,
+                                             float (&acc)[D]) const {
+#pragma unroll
+    for (int k = 0; k < D; ++k) acc[k] = fmaf(s[k], s[D], acc[k]);
   }
 
   __device__ __forceinline__ float out(float v) const { return v; }
 };
 
-// out[i] = sum of term over row i's entries.  Every lane of a warp runs to
-// the end (no early exit): the long rows are shared through warp shuffles.
-template <int D, class Term>
-__global__ void __launch_bounds__(BLOCK)
-row_sum_kernel(int n_rows, const int* __restrict__ indptr,
-               const float* __restrict__ x, Term term,
-               float* __restrict__ out) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+// acc += the terms of entries first, first + step, ... < end of the row at
+// xi, in that order, with up to BATCH column indices and weights, then
+// BATCH gathers, in flight before each batch's adds (kernel A's walk)
+template <int D, int BATCH, class Src>
+__device__ __forceinline__ void linlog_walk(int first, int end, int step,
+                                            const int* __restrict__ col,
+                                            const Src& src,
+                                            const float (&xi)[D],
+                                            float (&acc)[D]) {
+  for (int e = first; e < end; e += BATCH * step) {
+    int c[BATCH];
+    float w[BATCH];
+#pragma unroll
+    for (int j = 0; j < BATCH; ++j) {
+      const int ej = e + j * step;
+      c[j] = ej < end ? __ldg(col + ej) : -1;
+      w[j] = ej < end ? src.weight(ej) : 0.f;
+    }
+    float v[BATCH][D];
+#pragma unroll
+    for (int j = 0; j < BATCH; ++j)
+      if (c[j] >= 0) src.gather(c[j], v[j]);
+#pragma unroll
+    for (int j = 0; j < BATCH; ++j)
+      if (c[j] >= 0) src.add(w[j], v[j], xi, acc);
+  }
+}
+
+// one hub row (kernel A's hub_block): all threads compute the factors of
+// CHUNK terms at a time and stage them in the block's slice of ``stage``;
+// warp 0 adds diff * coef under the lane rule
+template <int D, class Src>
+__device__ void linlog_hub_block(int row, const int* __restrict__ indptr,
+                                 const int* __restrict__ col, const Src& src,
+                                 float* __restrict__ stage,
+                                 float* __restrict__ out) {
+  const int lo = indptr[row], hi = indptr[row + 1];
   const int lane = threadIdx.x & 31;
+  float xi[D], part[D];
+#pragma unroll
+  for (int k = 0; k < D; ++k) part[k] = 0.f;
+  src.row_state(row, xi);
+  for (int c0 = lo; c0 < hi; c0 += CHUNK) {
+    const int c1 = min(c0 + CHUNK, hi);
+    int c[PER_THREAD];
+#pragma unroll
+    for (int j = 0; j < PER_THREAD; ++j) {
+      const int e = c0 + threadIdx.x + j * BLOCK;
+      c[j] = e < c1 ? __ldg(col + e) : -1;
+    }
+    float v[PER_THREAD][D];
+#pragma unroll
+    for (int j = 0; j < PER_THREAD; ++j)
+      if (c[j] >= 0) src.gather(c[j], v[j]);
+#pragma unroll
+    for (int j = 0; j < PER_THREAD; ++j) {
+      if (c[j] < 0) continue;
+      const int at = threadIdx.x + j * BLOCK;
+      src.stage(c0 + at, v[j], xi, stage + at * Src::kStage);
+    }
+    __syncthreads();
+    if (threadIdx.x < 32) {
+      for (int e = c0 + lane; e < c1; e += 32)
+        src.add_staged(e, stage + (e - c0) * Src::kStage, part);
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x < 32) {
+    butterfly<D>(part);
+    if (lane == 0) write_row<D, Src>(out, row, src, part);
+  }
+}
+
+// rows [r0, r0 + TILE_ROWS) but the hubs (kernel A's tile_block): x[i] read
+// by the row's thread, shuffled to its warp for a warp row
+template <int D, class Src>
+__device__ void linlog_tile_block(int r0, int n_rows,
+                                  const int* __restrict__ indptr,
+                                  const int* __restrict__ col, const Src& src,
+                                  float* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int row = r0 + static_cast<int>(threadIdx.x);
   const bool active = row < n_rows;
   const int lo = active ? indptr[row] : 0;
   const int hi = active ? indptr[row + 1] : 0;
-  const bool is_long = hi - lo > LONG_ROW;
-  float xi[D], acc[D];
+  float xi[D];
 #pragma unroll
-  for (int k = 0; k < D; ++k) {
-    xi[k] = Term::kRowState && active ? x[static_cast<size_t>(row) * D + k]
-                                      : 0.f;
-    acc[k] = 0.f;
+  for (int k = 0; k < D; ++k) xi[k] = 0.f;
+  if (active) src.row_state(row, xi);
+  if (hi - lo <= LONG_ROW) {
+    float acc[D];
+#pragma unroll
+    for (int k = 0; k < D; ++k) acc[k] = 0.f;
+    linlog_walk<D, SHORT_BATCH>(lo, hi, 1, col, src, xi, acc);
+    if (active) write_row<D, Src>(out, row, src, acc);
   }
-  if (!is_long) {
-    for (int e = lo; e < hi; ++e) term.add(xi, e, acc);
-  }
-  unsigned pending = __ballot_sync(FULL, is_long);
+  unsigned pending = __ballot_sync(FULL, hi - lo > LONG_ROW
+                                             && hi - lo <= HUB_ROW);
   while (pending) {
-    const int src = __ffs(pending) - 1;
+    const int owner = __ffs(pending) - 1;
     pending &= pending - 1;
-    const int rlo = __shfl_sync(FULL, lo, src);
-    const int rhi = __shfl_sync(FULL, hi, src);
+    const int rlo = __shfl_sync(FULL, lo, owner);
+    const int rhi = __shfl_sync(FULL, hi, owner);
     float rx[D], part[D];
 #pragma unroll
     for (int k = 0; k < D; ++k) {
-      rx[k] = __shfl_sync(FULL, xi[k], src);
+      rx[k] = __shfl_sync(FULL, xi[k], owner);
       part[k] = 0.f;
     }
-#pragma unroll 4
-    for (int e = rlo + lane; e < rhi; e += 32) term.add(rx, e, part);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-      for (int k = 0; k < D; ++k)
-        part[k] += __shfl_xor_sync(FULL, part[k], off);
-    }
-    if (lane == src) {
-#pragma unroll
-      for (int k = 0; k < D; ++k) acc[k] = part[k];
-    }
+    linlog_walk<D, LANE_BATCH>(rlo + lane, rhi, 32, col, src, rx, part);
+    butterfly<D>(part);
+    if (lane == 0) write_row<D, Src>(out, row - lane + owner, src, part);
   }
-  if (!active) return;
-  float* oi = out + static_cast<size_t>(row) * D;
-#pragma unroll
-  for (int k = 0; k < D; ++k) oi[k] = term.out(acc[k]);
 }
 
-template <int D, class Term>
-void launch_rows(int n_rows, const int* indptr, const float* x,
-                 const Term& term, float* out, cudaStream_t stream) {
-  const int grid = (n_rows + BLOCK - 1) / BLOCK;
-  row_sum_kernel<D, Term><<<grid, BLOCK, 0, stream>>>(n_rows, indptr, x,
-                                                      term, out);
+template <int D>
+__global__ void __launch_bounds__(BLOCK)
+linlog_kernel(int n_rows, const int* __restrict__ indptr,
+              const int* __restrict__ col, LinlogRows<D> src,
+              const int* __restrict__ hub_rows, int n_hubs,
+              float* __restrict__ stage, float* __restrict__ out) {
+  const int b = static_cast<int>(blockIdx.x);
+  if (b < n_hubs)
+    linlog_hub_block<D>(hub_rows[b], indptr, col, src,
+                        stage + static_cast<size_t>(b) * CHUNK * (D + 1),
+                        out);
+  else
+    linlog_tile_block<D>((b - n_hubs) * TILE_ROWS, n_rows, indptr, col, src,
+                         out);
 }
 
 template <int D>
 void launch_linlog(int n_rows, const int* indptr, const int* col,
-                   const float* w, const float* x, float* out, float attract,
-                   float eps, cudaStream_t stream) {
-  launch_rows<D>(n_rows, indptr, x, LinlogTerm<D>{col, w, x, attract, eps},
-                 out, stream);
+                   const float* w, const float* x, float attract, float eps,
+                   const int* hubs, int n_hubs, float* stage, float* out,
+                   cudaStream_t stream) {
+  const int grid = n_hubs + (n_rows + TILE_ROWS - 1) / TILE_ROWS;
+  linlog_kernel<D><<<grid, BLOCK, 0, stream>>>(
+      n_rows, indptr, col, LinlogRows<D>{x, w, attract, eps}, hubs, n_hubs,
+      stage, out);
 }
 
 template <int D>
@@ -535,24 +672,32 @@ extern "C" int ge_edge_spmm_null(int n_rows, int d, const void* indptr,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Kernel E takes kernel A's hub list and stages d + 1 floats per entry of
+// a hub pass (ops/edge_spmm.py sizes ``stage`` by this).
+extern "C" int ge_linlog_stage_floats(int d) { return d + 1; }
+
 // Kernel E.  Returns cudaGetLastError() after the launch.  The caller
-// guarantees n_rows > 0, 1 <= d <= 4 and a CSR with weights whose rows are
-// the first n_rows rows of x (x holds at least n_rows rows).
+// guarantees n_rows > 0, 1 <= d <= 4, a CSR with weights whose rows are
+// the first n_rows rows of x (x holds at least n_rows rows), the hub list
+// of ge_edge_spmm, and ``stage`` of n_hubs * CHUNK * (d + 1) floats.
 extern "C" int ge_edge_linlog(int n_rows, int d, const void* indptr,
                               const void* col, const void* w, const void* x,
                               void* out, float attract, float eps,
+                              const void* hub_rows, int n_hubs, void* stage,
                               void* stream) {
   const int* ip = static_cast<const int*>(indptr);
   const int* c = static_cast<const int*>(col);
   const float* wf = static_cast<const float*>(w);
   const float* xf = static_cast<const float*>(x);
+  const int* hr = static_cast<const int*>(hub_rows);
+  float* st = static_cast<float*>(stage);
   float* of = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 1: launch_linlog<1>(n_rows, ip, c, wf, xf, of, attract, eps, s); break;
-    case 2: launch_linlog<2>(n_rows, ip, c, wf, xf, of, attract, eps, s); break;
-    case 3: launch_linlog<3>(n_rows, ip, c, wf, xf, of, attract, eps, s); break;
-    case 4: launch_linlog<4>(n_rows, ip, c, wf, xf, of, attract, eps, s); break;
+    case 1: launch_linlog<1>(n_rows, ip, c, wf, xf, attract, eps, hr, n_hubs, st, of, s); break;
+    case 2: launch_linlog<2>(n_rows, ip, c, wf, xf, attract, eps, hr, n_hubs, st, of, s); break;
+    case 3: launch_linlog<3>(n_rows, ip, c, wf, xf, attract, eps, hr, n_hubs, st, of, s); break;
+    case 4: launch_linlog<4>(n_rows, ip, c, wf, xf, attract, eps, hr, n_hubs, st, of, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

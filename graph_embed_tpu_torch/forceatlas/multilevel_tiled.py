@@ -7,7 +7,8 @@ class S, id) and each occupies S consecutive slots, its members first and
 ghost slots after.  Then
 
 * within-aggregate repulsion of every exact bucket is one launch of
-  kernel B (``csrc/bucket_repulsion.cu``); buckets whose class reaches
+  kernel B (``csrc/bucket_repulsion.cu``, members against members over a
+  table of warp tasks, ``_task_table``); buckets whose class reaches
   ``sampled_slots_threshold`` use the per-aggregate negative-sampling
   estimator in plain PyTorch;
 * intra-aggregate attraction is kernel A (``csrc/edge_spmm.cu``) over a
@@ -116,7 +117,8 @@ class RefineLayout:
     # its buckets in order, m_b rows each (ghost aggregates past the end
     # get zeros), so a class dealt over shards draws as one bucket does
     sampled_classes: tuple
-    exact_meta: torch.Tensor      # [ctas, 4] int32 kernel B table
+    exact_meta: torch.Tensor      # [tasks, 4] int32 kernel B table
+    exact_aggs: torch.Tensor      # [aggregates, 2] int32 its small classes
     n: int
     n_slots: int
     num_aggs: int
@@ -150,21 +152,81 @@ def _reference_pairs_slots(ss_ref, rr_ref, n_slots_ref: int) -> bool:
     return count <= ES.MAX_SLABS_PER_CALL
 
 
-def _cta_table(buckets) -> np.ndarray:
-    """Kernel B's per-CTA rows (cta start, S, bucket base, bucket end) over
-    the exact buckets."""
-    rows = []
+def _task_table(buckets, valid) -> tuple[np.ndarray, np.ndarray]:
+    """Kernel B's warp tasks over the exact buckets (csrc/bucket_repulsion
+    .cu), one int4 row each, the largest partner count first, and the
+    aggregates its small-class tasks walk.  With T = ``cuda.BUCKET_TILE``
+    (32):
+
+    * S <= T, rows: (position in the aggregates, S, first row of that
+      aggregate, rows): T member rows at a time of the class's aggregates
+      of two or more members, listed (first slot, member count) by count,
+      largest first, their rows in order;
+    * S <= T, zeros: (first slot, -S, slots, mask) per T slots of the
+      bucket holding a ghost or the member of a one-member aggregate (bit
+      l: slot first + l is written 0);
+    * S > T: (the aggregate's first slot, S, first row, member count), per
+      T rows of each aggregate.
+
+    Returns ([tasks, 4], [aggregates, 2]) int32.  Member counts come from
+    ``valid``, which must hold each aggregate's members first."""
+    T = cuda.BUCKET_TILE
+    rows, cost, aggs = [], [], []
+    n_aggs = 0
     for b in buckets:
         if b.sampled:
             continue
-        end = b.base + b.m_b * b.S
-        starts = np.arange(b.base, end, cuda.BUCKET_TILE, dtype=np.int64)
-        rows.append(np.stack([starts, np.full_like(starts, b.S),
-                              np.full_like(starts, b.base),
-                              np.full_like(starts, end)], axis=1))
-    if not rows:
-        return np.zeros((0, 4), np.int32)
-    return np.concatenate(rows).astype(np.int32)
+        if b.S < 8 or b.S & (b.S - 1):
+            raise ValueError(f"kernel B takes power-of-two classes >= 8, "
+                             f"not {b.S}")
+        v = valid[b.slots].reshape(b.m_b, b.S)
+        counts = v.sum(axis=1)
+        if not np.array_equal(v, np.arange(b.S) < counts[:, None]):
+            raise ValueError("kernel B needs each aggregate's members first")
+        starts = b.base + np.arange(b.m_b, dtype=np.int64) * b.S
+        if b.S > T:
+            k = b.S // T
+            row0 = np.tile(np.arange(k, dtype=np.int64) * T, b.m_b)
+            c = np.repeat(counts, k)
+            rows.append(np.stack([np.repeat(starts, k),
+                                  np.full(row0.size, b.S), row0, c], axis=1))
+            cost.append(np.where(row0 < c, c, 0))
+            continue
+        # zeros: ghosts and one-member aggregates, T slots per mask
+        zero = ~v | (counts < 2)[:, None]
+        n = -(-zero.size // T)
+        bits = np.zeros(n * T, np.int64)
+        bits[: zero.size] = zero.reshape(-1)
+        mask = (bits.reshape(n, T) << np.arange(T)).sum(axis=1)
+        first = b.base + np.arange(n, dtype=np.int64) * T
+        live = mask != 0
+        rows.append(np.stack([first, np.full(n, -b.S),
+                              np.minimum(T, b.slots.stop - first),
+                              mask], axis=1)[live])
+        cost.append(np.zeros(int(live.sum()), np.int64))
+        # rows: the aggregates of 2+ members by count, largest first
+        mine = np.flatnonzero(counts >= 2)
+        mine = mine[np.argsort(-counts[mine], kind="stable")]
+        c = counts[mine]
+        ends = np.cumsum(c)
+        q0 = np.arange(0, int(ends[-1]) if c.size else 0, T)
+        at = np.searchsorted(ends, q0, side="right")
+        rows.append(np.stack([n_aggs + at, np.full(q0.size, b.S),
+                              q0 - (ends[at] - c[at]),
+                              np.minimum(T, ends[-1] - q0) if c.size
+                              else q0], axis=1))
+        cost.append(c[at])
+        aggs.append(np.stack([starts[mine], c], axis=1))
+        n_aggs += mine.size
+    table = (np.concatenate(rows)[np.argsort(-np.concatenate(cost),
+                                             kind="stable")]
+             if rows else np.zeros((0, 4)))
+    # the masks are 32-bit patterns: wrap bit 31 into int32's sign
+    table = table.astype(np.int64)
+    table[:, 3] = (table[:, 3] + (1 << 31)) % (1 << 32) - (1 << 31)
+    return (table.astype(np.int32),
+            np.concatenate(aggs).astype(np.int32) if aggs
+            else np.zeros((0, 2), np.int32))
 
 
 def slot_layout(g: Graph, v2a, counts, params: MultilevelFAParams,
@@ -215,6 +277,7 @@ def slot_layout(g: Graph, v2a, counts, params: MultilevelFAParams,
     w_rep = np.where(valid, deg_loc + 1.0, 0.0).astype(np.float32)
     S_of_agg = bucket_size_classes(counts)
     sampled = sorted({b.S for b in buckets if b.sampled})
+    tasks, aggs = _task_table(buckets, valid)
     return RefineLayout(
         slot_of_vertex=torch.from_numpy(slot_of_vertex).to(dev),
         valid_slot=torch.from_numpy(valid).to(dev),
@@ -226,7 +289,8 @@ def slot_layout(g: Graph, v2a, counts, params: MultilevelFAParams,
             (int((S_of_agg == S).sum()),
              tuple(i for i, b in enumerate(buckets) if b.sampled
                    and b.S == S)) for S in sampled),
-        exact_meta=torch.from_numpy(_cta_table(buckets)).to(dev),
+        exact_meta=torch.from_numpy(tasks).to(dev),
+        exact_aggs=torch.from_numpy(aggs).to(dev),
         n=n, n_slots=n_slots, num_aggs=counts.size)
 
 
@@ -326,10 +390,12 @@ def exact_repulsion_plain(x, layout: RefineLayout, repel: float,
 
 def exact_repulsion_cuda(x, layout: RefineLayout, repel: float,
                          eps: float) -> torch.Tensor:
-    """Kernel B: one launch over every exact bucket.  Slots of sampled
-    buckets are left unwritten (the caller fills them)."""
-    w, meta = layout.w_rep, layout.exact_meta
-    if not x.is_cuda or w.device != x.device or meta.device != x.device:
+    """Kernel B: one launch over every exact bucket, the warp tasks of
+    ``layout.exact_meta`` (``_task_table``): members against members,
+    ghost slots written 0.  Slots of sampled buckets are left unwritten
+    (the caller fills them)."""
+    w, meta, aggs = layout.w_rep, layout.exact_meta, layout.exact_aggs
+    if not x.is_cuda or any(t.device != x.device for t in (w, meta, aggs)):
         raise ValueError("kernel B needs x and the layout on one CUDA "
                          "device")
     if (x.dtype != torch.float32 or not x.is_contiguous()
@@ -339,16 +405,18 @@ def exact_repulsion_cuda(x, layout: RefineLayout, repel: float,
                          f"[{layout.n_slots}, d<=4] slot coordinates, got "
                          f"{x.dtype} {tuple(x.shape)}")
     if (meta.dtype != torch.int32 or not meta.is_contiguous()
-            or meta.data_ptr() % 16 != 0):
-        raise ValueError("kernel B's CTA table must be aligned int32")
+            or meta.data_ptr() % 16 != 0 or aggs.dtype != torch.int32
+            or not aggs.is_contiguous() or aggs.data_ptr() % 8 != 0):
+        raise ValueError("kernel B's task table and aggregates must be "
+                         "aligned int32")
     out = torch.empty_like(x)
     if meta.shape[0] == 0:
         return out
     with torch.cuda.device(x.device):
         rc = cuda.library().ge_bucket_repulsion(
-            meta.shape[0], x.shape[1], meta.data_ptr(), x.data_ptr(),
-            w.data_ptr(), out.data_ptr(), float(repel), float(eps),
-            cuda.stream_of(x))
+            meta.shape[0], x.shape[1], meta.data_ptr(), aggs.data_ptr(),
+            aggs.shape[0], x.data_ptr(), w.data_ptr(), out.data_ptr(),
+            float(repel), float(eps), cuda.stream_of(x))
     cuda.check(rc, "bucket_repulsion")
     cuda.LAUNCHES["bucket_repulsion"] += 1
     return out

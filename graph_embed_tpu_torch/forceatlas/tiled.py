@@ -9,7 +9,9 @@ graph (``prepare_tiled``), then per iteration:
 * linlog: kernel E (per-edge attraction with the distance) and, for
   sampled repulsion, kernel C, then the speed update in PyTorch;
 * gram or exact repulsion: the attraction as above (DIA part in PyTorch,
-  residual on kernel A) and the repulsion of forceatlas/forces.py.
+  residual on kernel A) and the repulsion of forceatlas/forces.py; every
+  other repulsion name ("centroids") takes the exact one, as in the
+  reference.
 
 The state is row-major [n, d]; the reference's transposed [D_PAD, n_pad]
 state, its slab, tier and BSR layouts and its near/far offset split are
@@ -253,12 +255,10 @@ def tiled_forces(x, tfa: TiledFA, params: ForceAtlasParams, *,
                                    eps=eps)
     elif params.repulsion == "gram":
         rep = F.repulsion_gram(x, tfa.deg_p1, params.repel, eps)
-    elif params.repulsion == "exact":
-        rep = F.repulsion_exact(x, tfa.deg_p1, params.repel, eps)
     else:
-        raise NotImplementedError(
-            f"{params.repulsion!r} repulsion is not ported to the tiled "
-            "step (ROADMAP queue 1, item 5)")
+        # every other name, "centroids" included, takes exact repulsion, as
+        # the reference's tiled step does (tiled.py:274-275, :319-320)
+        rep = F.repulsion_exact(x, tfa.deg_p1, params.repel, eps)
     grav = F.gravity_force(x, tfa.deg_p1, params.gravity)
     return rep + att + grav
 

@@ -34,10 +34,10 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                  "-Xptxas", "-v")
 
-# kernel B's slots per CTA (TILE in csrc/bucket_repulsion.cu); the layout's
-# CTA table is cut in these steps, and ``library`` checks that the built
-# kernel agrees
-BUCKET_TILE = 256
+# kernel B's slots (or rows) per warp task (WARP_SLOTS in
+# csrc/bucket_repulsion.cu); the layout's task table is cut in these steps,
+# and ``library`` checks that the built kernel agrees
+BUCKET_TILE = 32
 # kernel A's hub rows: rows of more entries than this get a block of their
 # own (HUB_ROW in csrc/edge_spmm.cu; ops/edge_spmm.py lists them)
 SPMV_HUB_ROW = 2048
@@ -124,9 +124,9 @@ def declare(lib) -> None:
         fn.restype = i
         fn.argtypes = [i, i, p, p, p, p, p, i, p, p]
     lib.ge_bucket_repulsion.restype = i
-    lib.ge_bucket_repulsion.argtypes = [i, i, p, p, p, p, f, f, p]
+    lib.ge_bucket_repulsion.argtypes = [i, i, p, p, i, p, p, p, f, f, p]
     lib.ge_edge_linlog.restype = i
-    lib.ge_edge_linlog.argtypes = [i, i, p, p, p, p, p, f, f, p]
+    lib.ge_edge_linlog.argtypes = [i, i, p, p, p, p, p, f, f, p, i, p, p]
     lib.ge_sampled_repulsion.restype = i
     lib.ge_sampled_repulsion.argtypes = [i, i, i, p, p, p, f, f, p, p]
     lib.ge_fused_step.restype = i
@@ -152,7 +152,7 @@ def library():
             if lib.ge_bucket_tile() != BUCKET_TILE:
                 raise RuntimeError(
                     f"kernel B was built with {lib.ge_bucket_tile()} slots "
-                    f"per CTA, the layout cuts {BUCKET_TILE}")
+                    f"per task, the layout cuts {BUCKET_TILE}")
             lib.ge_spmv_hub_row.restype = ctypes.c_int
             lib.ge_spmv_hub_row.argtypes = []
             if lib.ge_spmv_hub_row() != SPMV_HUB_ROW:
@@ -160,6 +160,11 @@ def library():
                     f"kernel A was built with hubs above "
                     f"{lib.ge_spmv_hub_row()} entries, the plan lists "
                     f"those above {SPMV_HUB_ROW}")
+            lib.ge_linlog_stage_floats.restype = ctypes.c_int
+            lib.ge_linlog_stage_floats.argtypes = [ctypes.c_int]
+            if lib.ge_linlog_stage_floats(3) != 4:
+                raise RuntimeError("kernel E stages another width than "
+                                   "ops/edge_spmm.py allocates (d + 1)")
             _LIB = lib
     return _LIB
 

@@ -33,7 +33,8 @@ built with it.
 Kernel E is the linlog attraction of edge_spmm.py:attraction_tiled
 (:240, body ``_attraction_kernel`` :203): per stored entry the distance,
 ``attract * c_e * log1p(d)/d * (x_col - x_row)``, summed per row with the
-folded float32 weights as ``build_edge_tiles`` keeps them (not truncated).
+folded float32 weights as ``build_edge_tiles`` keeps them (not truncated),
+on kernel A's walk and the same hub list.
 
 Every entry point launches its kernel on a CUDA tensor and runs the plain
 PyTorch version on a CPU tensor; there is no fallback between the two.
@@ -184,16 +185,17 @@ def spmv_plain(x: torch.Tensor, csr: EdgeCSR) -> torch.Tensor:
     return y.index_add_(0, rows, vals)
 
 
-def _plan(csr: EdgeCSR, d: int) -> tuple:
-    """Kernel A's plan arguments, (hub rows, their count, the hub blocks'
+def _plan(csr: EdgeCSR, floats: int) -> tuple:
+    """The walk's plan arguments, (hub rows, their count, the hub blocks'
     staging buffer), and that buffer, to be held until the launch: CHUNK =
-    ``cuda.SPMV_HUB_ROW`` entries of d floats per hub block, per call."""
+    ``cuda.SPMV_HUB_ROW`` entries of ``floats`` floats per hub block, per
+    call (kernel A stages d, kernel E d + 1)."""
     n = int(csr.hub_rows.shape[0])
     if not n:
         return (None, 0, None), None
     if csr.hub_rows.device != csr.device:
-        raise ValueError("kernel A's hub rows lie on another device")
-    stage = torch.empty(n * cuda.SPMV_HUB_ROW * d, dtype=torch.float32,
+        raise ValueError("the CSR's hub rows lie on another device")
+    stage = torch.empty(n * cuda.SPMV_HUB_ROW * floats, dtype=torch.float32,
                         device=csr.device)
     return (csr.hub_rows.data_ptr(), n, stage.data_ptr()), stage
 
@@ -508,7 +510,8 @@ def linlog_cuda(x: torch.Tensor, csr: EdgeCSR, *, attract: float,
                 eps: float) -> torch.Tensor:
     """Kernel E on the card: linlog attraction for float32 [n_cols, d <= 4]
     coordinates over a CSR with float32 weights whose rows are the first
-    n_rows of them (square, or the halo step's [x | pool] columns)."""
+    n_rows of them (square, or the halo step's [x | pool] columns).  It
+    walks the CSR as kernel A does, a block for each of its hub rows."""
     _check_coords(x, csr, "kernel E")
     if csr.w is None or csr.n_rows > csr.n_cols:
         raise ValueError("kernel E takes a CSR with weights and no more "
@@ -517,11 +520,12 @@ def linlog_cuda(x: torch.Tensor, csr: EdgeCSR, *, attract: float,
                       device=x.device)
     if csr.n_rows == 0:
         return out
+    plan, _stage = _plan(csr, x.shape[1] + 1)
     with torch.cuda.device(x.device):
         rc = cuda.library().ge_edge_linlog(
             csr.n_rows, x.shape[1], csr.indptr.data_ptr(), csr.col.data_ptr(),
             csr.w.data_ptr(), x.data_ptr(), out.data_ptr(), float(attract),
-            float(eps), cuda.stream_of(x))
+            float(eps), *plan, cuda.stream_of(x))
     cuda.check(rc, "edge_linlog")
     cuda.LAUNCHES["edge_linlog"] += 1
     return out

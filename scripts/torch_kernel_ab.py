@@ -1,30 +1,37 @@
 #!/usr/bin/env python3
-"""Kernels A and D of two builds of ``graph_embed_tpu_torch/csrc`` on one
-CUDA card, on the same inputs: this checkout's and another checkout's.
+"""Kernels A, B, D and E of two builds of ``graph_embed_tpu_torch/csrc`` on
+one CUDA card, on the same inputs: this checkout's and another checkout's.
 
-    python3 scripts/torch_kernel_ab.py --other DIR
+    python3 scripts/torch_kernel_ab.py --other DIR [--only A,B,D,E,flat]
 
 DIR is the root of another checkout (a ``git archive`` of an earlier
 commit, say).  Its ``graph_embed_tpu_torch/csrc`` is built with nvcc into a
 temporary directory outside both checkouts and loaded beside this
-checkout's library; its kernel A entry points may predate the hub list
-(they then take no plan).  At the shapes ``chip_smoke.py`` gives each
-kernel it reports, one JSON line per measurement:
+checkout's library.  Its entry points may predate this checkout's: kernel
+A's and E's without the hub list take no plan, and a kernel B whose
+``ge_bucket_tile()`` is 256 takes the table of one row per 256 slots
+(cta start, S, bucket base, bucket end), built here for it.  At the shapes
+``chip_smoke.py`` gives each kernel it reports, one JSON line per
+measurement:
 
   kernel    kernel A unit (the level-0 slot CSR of mesh3d(128), the
             residual CSRs of rmat(20, 8) and community_rmat(512, 22, 8)),
-            weighted (the first Galerkin level), bf16x (community bf16),
+            weighted (the first Galerkin level), bf16x (community bf16,
+            rmat(20, 8) ordered bf16),
             exact (community tiered nohubs), stream-only (community,
-            rmat(20, 8)), and
+            rmat(20, 8)); kernel B (the level-0 and first Galerkin slot
+            layouts of mesh3d(128), whole and one size class at a time);
             kernel D (mesh3d(128), rmat(20, 8), community f32; at 64
-            samples and at one, the sample loop all but removed): whether
-            the two outputs are torch.equal, else the largest difference
-            over the element's sum of |terms|; both builds' times on the
-            card alone and the host's enqueue times (chip_smoke.device_ms),
-            in the order other, this, this, other;
+            samples and at one, the sample loop all but removed); kernel E
+            (the linlog CSRs of rmat(20, 8) and of the community graph):
+            whether the two outputs are torch.equal, else the largest
+            difference over the element's sum of |terms|; both builds'
+            times on the card alone and the host's enqueue times
+            (chip_smoke.device_ms), in the order other, this, this, other;
   flat      the flat step's ms per iteration on chip_smoke.py's nine plans
             with either build's kernels (median of 5 CUDA-event timings of
             20 iterations each; the same order).
+``--only`` picks the sections (default all).
 """
 
 from __future__ import annotations
@@ -47,9 +54,17 @@ sys.path.insert(0, ROOT)
 import chip_smoke as CS  # noqa: E402
 
 
+def entry_points(lib) -> dict:
+    """What a library's entry points take: kernel A's and E's hub lists,
+    kernel B's slots per table row."""
+    return dict(hubs=hasattr(lib, "ge_spmv_hub_row"),
+                linlog_hubs=hasattr(lib, "ge_linlog_stage_floats"),
+                bucket_tile=lib.ge_bucket_tile())
+
+
 def build_other(root: str, work: str):
     """nvcc the other checkout's csrc into ``work``; returns the loaded
-    library and whether its kernel A takes the hub list."""
+    library and what its entry points take (``entry_points``)."""
     from graph_embed_tpu_torch.ops import cuda
 
     srcs = sorted(glob.glob(os.path.join(root, "graph_embed_tpu_torch",
@@ -68,13 +83,84 @@ def build_other(root: str, work: str):
     CS.require(link.returncode == 0, "link: " + link.stderr[-2000:])
     lib = ctypes.CDLL(lib_path)
     cuda.declare(lib)
-    hubs = hasattr(lib, "ge_spmv_hub_row")
-    if not hubs:
-        p, i = ctypes.c_void_p, ctypes.c_int
+    takes = entry_points(lib)
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    if not takes["hubs"]:
         lib.ge_edge_spmm.argtypes = [i, i, p, p, p, p, p, p]
         for fn in (lib.ge_edge_spmm_bf16x, lib.ge_edge_spmm_null):
             fn.argtypes = [i, i, p, p, p, p, p]
-    return lib, hubs
+    if not takes["linlog_hubs"]:
+        lib.ge_edge_linlog.argtypes = [i, i, p, p, p, p, p, f, f, p]
+    if takes["bucket_tile"] == 256:
+        lib.ge_bucket_repulsion.argtypes = [i, i, p, p, p, p, f, f, p]
+    return lib, takes
+
+
+def _linlog_planless(lib):
+    """Kernel E's wrapper for a library whose entry point takes no hub
+    list."""
+    import torch
+
+    from graph_embed_tpu_torch.ops import cuda
+
+    def linlog_cuda(x, csr, *, attract, eps):
+        out = torch.empty((csr.n_rows, x.shape[1]), dtype=torch.float32,
+                          device=x.device)
+        rc = lib.ge_edge_linlog(
+            csr.n_rows, x.shape[1], csr.indptr.data_ptr(), csr.col.data_ptr(),
+            csr.w.data_ptr(), x.data_ptr(), out.data_ptr(), float(attract),
+            float(eps), cuda.stream_of(x))
+        cuda.check(rc, "edge_linlog")
+        return out
+
+    return linlog_cuda
+
+
+def cta_table_256(buckets):
+    """The table of a kernel B that cuts 256 slots per row: (cta start, S,
+    bucket base, bucket end) over the exact buckets."""
+    import numpy as np
+
+    rows = []
+    for b in buckets:
+        if b.sampled:
+            continue
+        end = b.base + b.m_b * b.S
+        starts = np.arange(b.base, end, 256, dtype=np.int64)
+        rows.append(np.stack([starts, np.full_like(starts, b.S),
+                              np.full_like(starts, b.base),
+                              np.full_like(starts, end)], axis=1))
+    return np.concatenate(rows).astype(np.int32)
+
+
+def _bucket_256(lib):
+    """Kernel B's wrapper for a library that takes ``cta_table_256``: the
+    table over the buckets of the classes the layout's own table holds
+    (so a table restricted to one class restricts this one too)."""
+    import torch
+
+    from graph_embed_tpu_torch.ops import cuda
+
+    # by the layout's own table, held so that its id stays its own; built
+    # on the first call (which waits on the card), so timed calls do not
+    tables = {}
+
+    def exact_repulsion_cuda(x, layout, repel, eps):
+        key = id(layout.exact_meta)
+        if key not in tables:
+            classes = set(layout.exact_meta[:, 1].abs().tolist())
+            tables[key] = (layout.exact_meta, torch.from_numpy(cta_table_256(
+                [b for b in layout.buckets if b.S in classes])).to(x.device))
+        meta = tables[key][1]
+        out = torch.empty_like(x)
+        rc = lib.ge_bucket_repulsion(
+            meta.shape[0], x.shape[1], meta.data_ptr(), x.data_ptr(),
+            layout.w_rep.data_ptr(), out.data_ptr(), float(repel),
+            float(eps), cuda.stream_of(x))
+        cuda.check(rc, "bucket_repulsion")
+        return out
+
+    return exact_repulsion_cuda
 
 
 def _planless(lib):
@@ -108,23 +194,31 @@ def _planless(lib):
 
 
 @contextlib.contextmanager
-def use(lib, hubs: bool):
+def use(lib, takes: dict):
     """Route the port's kernel wrappers to ``lib`` inside the block."""
+    from graph_embed_tpu_torch.forceatlas import multilevel_tiled as MT
     from graph_embed_tpu_torch.ops import cuda
     from graph_embed_tpu_torch.ops import edge_spmm as ES
 
-    names = ("spmv_cuda", "spmv_bf16x_cuda", "spmv_null_cuda")
-    saved = (cuda._LIB, *(getattr(ES, n) for n in names))
+    patches = []
+    if not takes["hubs"]:
+        patches += zip([ES] * 3, ("spmv_cuda", "spmv_bf16x_cuda",
+                                  "spmv_null_cuda"), _planless(lib))
+    if not takes["linlog_hubs"]:
+        patches.append((ES, "linlog_cuda", _linlog_planless(lib)))
+    if takes["bucket_tile"] == 256 != cuda.BUCKET_TILE:
+        patches.append((MT, "exact_repulsion_cuda", _bucket_256(lib)))
+    saved_lib = cuda._LIB
+    saved = [(mod, n, getattr(mod, n)) for mod, n, _ in patches]
     cuda._LIB = lib
-    if not hubs:
-        for n, fn in zip(names, _planless(lib)):
-            setattr(ES, n, fn)
+    for mod, n, fn in patches:
+        setattr(mod, n, fn)
     try:
         yield
     finally:
-        cuda._LIB = saved[0]
-        for n, fn in zip(names, saved[1:]):
-            setattr(ES, n, fn)
+        cuda._LIB = saved_lib
+        for mod, n, fn in saved:
+            setattr(mod, n, fn)
 
 
 def paired(fn, this, other, reps: int = 20) -> dict:
@@ -139,16 +233,17 @@ def paired(fn, this, other, reps: int = 20) -> dict:
             for j, m in enumerate(("ms", "host_ms"))}
 
 
-def compare(kernel: str, shape: str, fn, scale, this, other,
-            **fields) -> None:
+def compare(kernel: str, shape: str, fn, scale, this, other, *,
+            select=None, **fields) -> None:
     """One kernel on one shape with both builds: equality, the largest
-    difference over scale, both times."""
+    difference over scale, both times.  ``select`` picks from ``fn``'s
+    output what is compared (the times are ``fn``'s alone)."""
     import torch
 
     outs = {}
     for label, lib in (("this", this), ("other", other)):
         with use(*lib):
-            outs[label] = fn()
+            outs[label] = fn() if select is None else select(fn())
     torch.cuda.synchronize()
     a, b = outs["this"], outs["other"]
     if not isinstance(a, tuple):
@@ -175,6 +270,8 @@ def spmv_cases(torch, dev, g, res, flat, lj):
     cases.append(("unit", "rmat(20,8)", flat["rmat(20,8)"][1].csr))
     cases.append(("unit", "community f32", lj["community f32"][1].csr))
     cases.append(("bf16x", "community bf16", lj["community bf16"][1].csr))
+    cases.append(("bf16x", "rmat(20,8) ordered bf16",
+                  lj["rmat(20,8) ordered bf16"][1].csr))
     cases.append(("exact", "community tiered nohubs",
                   lj["community tiered nohubs"][1].csr))
     cases.append(("vnull", "community bf16", lj["community bf16"][1].csr))
@@ -186,102 +283,183 @@ def spmv_cases(torch, dev, g, res, flat, lj):
     return out
 
 
+SECTIONS = ("A", "B", "D", "E", "flat")
+
+
+def section_a(torch, dev, g, res, flat, lj, this, other) -> None:
+    from graph_embed_tpu_torch.ops import edge_spmm as ES
+
+    for mode, shape, csr, x in spmv_cases(torch, dev, g, res, flat, lj):
+        wabs = csr if csr.w is None else dataclasses.replace(
+            csr, w=csr.w.abs())
+        if mode == "bf16x":
+            xp = ES.pack_x_bf16(x)
+            fn = lambda xp=xp, csr=csr: ES.spmv_bf16x_cuda(xp, csr, 3)
+            scale = [ES.spmv_plain(ES.unpack_x_bf16(xp, 3).abs(), csr)]
+        elif mode == "vnull":
+            fn = lambda x=x, csr=csr: ES.spmv_null_cuda(x, csr)
+            scale = [ES.spmv_plain(x.abs(), csr)]
+        else:
+            fn = lambda x=x, csr=csr: ES.spmv_cuda(x, csr)
+            scale = [ES.spmv_plain(x.abs(), wabs)]
+        compare(f"edge_spmm[{mode}]", shape, fn, scale, this, other,
+                rows=csr.n_rows, nnz=csr.nnz,
+                hubs=int(csr.hub_rows.shape[0]))
+
+
+def section_b(torch, dev, g, res, this, other) -> None:
+    """Kernel B on the level-0 and first Galerkin slot layouts, whole and
+    one size class at a time (the table restricted to the class)."""
+    from graph_embed_tpu_torch.forceatlas import multilevel_tiled as MT
+    from graph_embed_tpu_torch.utils.params import MultilevelFAParams
+
+    params = MultilevelFAParams()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for level, graph in ((0, g), (1, res.coarse_graphs[0])):
+        layout = MT.prepare_refine(graph.to(dev), res.levels[level].to(dev),
+                                   params)
+        x = torch.rand((layout.n_slots, 3), generator=gen, device=dev) * 2 - 1
+        x = torch.where(layout.valid_slot[:, None], x, torch.zeros_like(x))
+        scale = MT.exact_repulsion_plain(x, layout, params.repel,
+                                         params.epsilon, absolute=True)
+        exact = [b for b in layout.buckets if not b.sampled]
+        # (shape, layout, the buckets its table covers: the other slots are
+        # left unwritten), with per-class counts at level 0
+        tables = [(f"level {level} slots", layout, exact, {})]
+        tables += [(f"level {level} class S={b.S}",
+                    CS.class_table(layout, b.S), [b], CS.b_class_counts(b))
+                   for b in exact]
+        for shape, lay, mine, counts in tables:
+            compare("bucket_repulsion", shape,
+                    lambda lay=lay, x=x: MT.exact_repulsion_cuda(
+                        x, lay, params.repel, params.epsilon),
+                    [torch.cat([scale[b.slots] for b in mine])], this, other,
+                    select=lambda out, mine=mine: torch.cat(
+                        [out[b.slots] for b in mine]),
+                    table_rows=int(lay.exact_meta.shape[0]), **counts)
+
+
+def section_d(torch, dev, flat, lj, this, other) -> None:
+    from graph_embed_tpu_torch.ops import edge_spmm as ES
+    from graph_embed_tpu_torch.ops import fused_step as FS
+    from graph_embed_tpu_torch.ops import repulsion as RP
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    plans = [(n, *flat[n][:2]) for n in (f"mesh3d({CS.MESH_SIDE})",
+                                         "rmat(20,8)")]
+    plans.append(("community f32", *lj["community f32"][:2]))
+    for shape, graph, tfa in plans:
+        params = CS.flat_params()
+        x = torch.rand((graph.n, 3), generator=gen, device=dev) * 2 - 1
+        fprev = torch.rand((graph.n, 3), generator=gen, device=dev) * 2 - 1
+        y_res = None if tfa.csr is None else ES.spmv_cuda(x, tfa.csr)
+        # the flat step's samples, and one sample: the step with its
+        # sample loop all but removed
+        for s in (CS.FLAT_SAMPLES, 1):
+            idx = RP.draw_samples(graph.n, s, gen, dev)
+            rest = (tfa.deg_w_att, tfa.deg_p1, idx, params)
+            fn = (lambda x=x, fprev=fprev, tfa=tfa, y_res=y_res,
+                  rest=rest: FS.fa_step_fused_cuda(
+                      x, fprev, tfa.dia_w, tfa.dia_off, y_res, *rest))
+            plain = (x, tfa.dia_w, tfa.dia_offsets, y_res, *rest)
+            f_scale = FS.step_forces_plain(*plain, absolute=True)
+            x_scale = x.abs() + f_scale  # x' = x + f * speed, speed <= 1
+            compare("fused_step", shape, fn, [x_scale, f_scale], this,
+                    other, n=graph.n, samples=s,
+                    dia_offsets=len(tfa.dia_offsets))
+
+
+def section_e(torch, dev, flat, lj, this, other) -> None:
+    """Kernel E on the rmat graph's linlog plan and a linlog plan of the
+    community graph (rows of ~14 entries: the thread-per-row path)."""
+    from graph_embed_tpu_torch.forceatlas import tiled as TL
+    from graph_embed_tpu_torch.ops import edge_spmm as ES
+
+    params = CS.flat_params(linlog=True)
+    kw = dict(attract=params.attract, eps=params.epsilon)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    cg = lj["community f32"][0]
+    for shape, csr in (("rmat(20,8)", flat["rmat(20,8) linlog"][1].csr),
+                       ("community", TL.prepare_tiled(cg, 3, params).csr)):
+        x = torch.rand((csr.n_cols, 3), generator=gen, device=dev) * 2 - 1
+        scale = [ES.linlog_plain(x, csr, absolute=True, **kw)]
+        compare("edge_linlog", shape,
+                lambda x=x, csr=csr: ES.linlog_cuda(x, csr, **kw), scale,
+                this, other, rows=csr.n_rows, nnz=csr.nnz,
+                hubs=int(csr.hub_rows.shape[0]))
+
+
+def section_flat(torch, dev, flat, lj, this, other) -> None:
+    for name, (graph, tfa, params) in (
+            [(n, (v[0], v[1], CS.flat_params(linlog="linlog" in n)))
+             for n, v in flat.items()]
+            + [(n, (v[0], v[1], v[2])) for n, v in lj.items()]):
+        times = {"this": [], "other": []}
+        for label in ("other", "this", "this", "other"):
+            with use(*(other if label == "other" else this)):
+                CS.drive_steps(torch, tfa, params, dev, 2)   # warm-up
+                torch.cuda.synchronize()
+                per = []
+                for rep in range(CS.FLAT_REPEATS):
+                    a = torch.cuda.Event(enable_timing=True)
+                    b = torch.cuda.Event(enable_timing=True)
+                    a.record()
+                    CS.drive_steps(torch, tfa, params, dev, CS.FLAT_ITERS,
+                                   seed=rep)
+                    b.record()
+                    b.synchronize()
+                    per.append(a.elapsed_time(b) / CS.FLAT_ITERS)
+                times[label].append(statistics.median(per))
+        CS.emit(phase="flat", plan=name, n=graph.n,
+                stored_entries=graph.num_edges,
+                this_ms_per_iteration=statistics.fmean(times["this"]),
+                other_ms_per_iteration=statistics.fmean(times["other"]),
+                runs=times)
+
+
 def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", required=True,
                     help="root of the other checkout")
+    ap.add_argument("--only", default=",".join(SECTIONS),
+                    help="comma-separated sections of " + ",".join(SECTIONS))
     args = ap.parse_args()
+    only = set(args.only.split(","))
+    if not only <= set(SECTIONS):
+        ap.error(f"unknown sections {sorted(only - set(SECTIONS))}")
     if not torch.cuda.is_available():
         print("torch_kernel_ab: needs a CUDA device", file=sys.stderr)
         return 1
     import graph_embed_tpu_torch as gp
     from graph_embed_tpu_torch.graph import synth
     from graph_embed_tpu_torch.ops import cuda
-    from graph_embed_tpu_torch.ops import edge_spmm as ES
-    from graph_embed_tpu_torch.ops import fused_step as FS
-    from graph_embed_tpu_torch.ops import repulsion as RP
 
     dev = torch.device("cuda", 0)
     CS.phase_env(torch)
     work = tempfile.mkdtemp(prefix="kernel_ab_")
     try:
-        this = (cuda.library(), True)
+        this = (cuda.library(), entry_points(cuda.library()))
         other = build_other(os.path.abspath(args.other), work)
-        CS.emit(phase="build", other=args.other, other_takes_hubs=other[1])
+        CS.emit(phase="build", other=args.other, other_takes=other[1],
+                this_takes=this[1])
 
         g = synth.mesh3d(CS.MESH_SIDE)
         res = gp.partition_hierarchy(g, 0.1, emit_graphs=True)
-        flat = CS.setup_flat(dev, g)
-        lj = CS.setup_lj(dev)
-
-        for mode, shape, csr, x in spmv_cases(torch, dev, g, res, flat, lj):
-            wabs = csr if csr.w is None else dataclasses.replace(
-                csr, w=csr.w.abs())
-            if mode == "bf16x":
-                xp = ES.pack_x_bf16(x)
-                fn = lambda xp=xp, csr=csr: ES.spmv_bf16x_cuda(xp, csr, 3)
-                scale = [ES.spmv_plain(ES.unpack_x_bf16(xp, 3).abs(), csr)]
-            elif mode == "vnull":
-                fn = lambda x=x, csr=csr: ES.spmv_null_cuda(x, csr)
-                scale = [ES.spmv_plain(x.abs(), csr)]
-            else:
-                fn = lambda x=x, csr=csr: ES.spmv_cuda(x, csr)
-                scale = [ES.spmv_plain(x.abs(), wabs)]
-            compare(f"edge_spmm[{mode}]", shape, fn, scale, this, other,
-                    rows=csr.n_rows, nnz=csr.nnz,
-                    hubs=int(csr.hub_rows.shape[0]))
-
-        gen = torch.Generator(device=dev).manual_seed(2)
-        plans = [(n, *flat[n][:2]) for n in (f"mesh3d({CS.MESH_SIDE})",
-                                             "rmat(20,8)")]
-        plans.append(("community f32", *lj["community f32"][:2]))
-        for shape, graph, tfa in plans:
-            params = CS.flat_params()
-            x = torch.rand((graph.n, 3), generator=gen, device=dev) * 2 - 1
-            fprev = torch.rand((graph.n, 3), generator=gen, device=dev) * 2 - 1
-            y_res = None if tfa.csr is None else ES.spmv_cuda(x, tfa.csr)
-            # the flat step's samples, and one sample: the step with its
-            # sample loop all but removed
-            for s in (CS.FLAT_SAMPLES, 1):
-                idx = RP.draw_samples(graph.n, s, gen, dev)
-                rest = (tfa.deg_w_att, tfa.deg_p1, idx, params)
-                fn = (lambda x=x, fprev=fprev, tfa=tfa, y_res=y_res,
-                      rest=rest: FS.fa_step_fused_cuda(
-                          x, fprev, tfa.dia_w, tfa.dia_off, y_res, *rest))
-                plain = (x, tfa.dia_w, tfa.dia_offsets, y_res, *rest)
-                f_scale = FS.step_forces_plain(*plain, absolute=True)
-                x_scale = x.abs() + f_scale  # x' = x + f * speed, speed <= 1
-                compare("fused_step", shape, fn, [x_scale, f_scale], this,
-                        other, n=graph.n, samples=s,
-                        dia_offsets=len(tfa.dia_offsets))
-
-        for name, (graph, tfa, params) in (
-                [(n, (v[0], v[1], CS.flat_params(linlog="linlog" in n)))
-                 for n, v in flat.items()]
-                + [(n, (v[0], v[1], v[2])) for n, v in lj.items()]):
-            times = {"this": [], "other": []}
-            for label in ("other", "this", "this", "other"):
-                with use(*(other if label == "other" else this)):
-                    CS.drive_steps(torch, tfa, params, dev, 2)   # warm-up
-                    torch.cuda.synchronize()
-                    per = []
-                    for rep in range(CS.FLAT_REPEATS):
-                        a = torch.cuda.Event(enable_timing=True)
-                        b = torch.cuda.Event(enable_timing=True)
-                        a.record()
-                        CS.drive_steps(torch, tfa, params, dev,
-                                       CS.FLAT_ITERS, seed=rep)
-                        b.record()
-                        b.synchronize()
-                        per.append(a.elapsed_time(b) / CS.FLAT_ITERS)
-                    times[label].append(statistics.median(per))
-            CS.emit(phase="flat", plan=name, n=graph.n,
-                    stored_entries=graph.num_edges,
-                    this_ms_per_iteration=statistics.fmean(times["this"]),
-                    other_ms_per_iteration=statistics.fmean(times["other"]),
-                    runs=times)
+        if only - {"B"}:
+            flat = CS.setup_flat(dev, g)
+            lj = CS.setup_lj(dev)
+        if "A" in only:
+            section_a(torch, dev, g, res, flat, lj, this, other)
+        if "B" in only:
+            section_b(torch, dev, g, res, this, other)
+        if "D" in only:
+            section_d(torch, dev, flat, lj, this, other)
+        if "E" in only:
+            section_e(torch, dev, flat, lj, this, other)
+        if "flat" in only:
+            section_flat(torch, dev, flat, lj, this, other)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return 0

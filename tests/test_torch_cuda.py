@@ -761,3 +761,117 @@ def test_kernel_d_tiles_offsets_and_samples(rng, dev, s, k):
     _assert_within_scale(got_x, want_x, x.abs() + (want_x - x).abs())
     again = FS.fa_step_fused_cuda(x, fprev, dia_w, dia_off, y_res, *rest)
     assert torch.equal(again[0], got_x) and torch.equal(again[1], got_f)
+
+
+# kernel E on kernel A's walk: thread, warp and hub rows
+E_SHAPES = {
+    "at the hub threshold": [CHUNK - 1, CHUNK, CHUNK + 1, 3 * CHUNK + 17],
+    "hubs back to back": [5, CHUNK + 1, 3 * CHUNK + 17, CHUNK + 5, 2],
+    "rows across chunks": STRADDLE,
+}
+
+
+def _linlog_csr(rng, lengths, n_cols, dev, cols=None):
+    """A CSR with the given row lengths, random columns (or ``cols``) and
+    float32 weights (not truncated) for kernel E; rows are the first of
+    the n_cols columns."""
+    lengths = np.asarray(lengths, np.int64)
+    rows = np.repeat(np.arange(lengths.size), lengths)
+    if cols is None:
+        cols = rng.integers(0, n_cols, rows.size)
+    w = 0.25 + np.sin(cols * 0.37) ** 2
+    csr, _ = ES.build_csr(rows, cols, w, lengths.size, n_cols, device=dev)
+    return csr, cols
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(E_SHAPES))
+@pytest.mark.parametrize("d", [1, 3, 4])
+def test_kernel_e_walk_matches_plain(rng, dev, d, shape):
+    """Kernel E on rows of 2047, 2048 and 2049 entries, a row of several
+    chunks, hubs back to back and rows that straddle a chunk, against its
+    plain version: each element within 1e-5 of its own sum of |terms|,
+    one launch, bitwise repeatable."""
+    n_cols = 3000
+    csr, _ = _linlog_csr(rng, E_SHAPES[shape], n_cols, dev)
+    assert csr.hub_rows.numel() > 0
+    x = torch.from_numpy(rng.uniform(-1, 1, (n_cols, d)).astype(
+        np.float32)).to(dev)
+    x[:5] = x[100:105]  # coincident pairs: d clamps at eps
+    kw = dict(attract=1.3, eps=EPS)
+    before = cuda.LAUNCHES["edge_linlog"]
+    got = ES.linlog(x, csr, **kw)
+    assert cuda.LAUNCHES["edge_linlog"] == before + 1
+    want = ES.linlog_plain(x, csr, **kw)
+    scale = ES.linlog_plain(x, csr, absolute=True, **kw)
+    torch.cuda.synchronize()
+    _assert_within_scale(got, want, scale)
+    assert torch.equal(ES.linlog(x, csr, **kw), got)
+
+
+@pytest.mark.cuda
+def test_kernel_e_sums_do_not_depend_on_where_a_row_starts(rng, dev):
+    """The same rows at different offsets of two CSRs (77 rows, a hub among
+    them, prepended to the second) give torch.equal sums; each row's own
+    coordinates move with it (the rows are the first columns of x)."""
+    n_cols, d = 3000, 3
+    csr, cols = _linlog_csr(rng, STRADDLE, n_cols, dev)
+    head = [int(v) for v in rng.integers(0, 60, 77)]
+    head[40] = CHUNK + 333
+    pre = rng.integers(0, n_cols, sum(head))
+    shifted, _ = _linlog_csr(rng, head + STRADDLE, n_cols + len(head), dev,
+                             cols=np.concatenate([pre, cols + len(head)]))
+    assert int(shifted.hub_rows.shape[0]) == int(csr.hub_rows.shape[0]) + 1
+    x = torch.from_numpy(rng.uniform(-1, 1, (n_cols, d)).astype(
+        np.float32)).to(dev)
+    xs = torch.cat([torch.from_numpy(rng.uniform(-1, 1, (len(head), d))
+                                     .astype(np.float32)).to(dev), x])
+    kw = dict(attract=0.7, eps=EPS)
+    # the weights follow the columns, which moved by len(head): use the
+    # first CSR's weights in the second's tail
+    w = shifted.w.clone()
+    w[int(shifted.indptr[len(head)]):] = csr.w
+    shifted = dataclasses.replace(shifted, w=w)
+    a = ES.linlog(x, csr, **kw)
+    b = ES.linlog(xs, shifted, **kw)
+    assert torch.equal(b[len(head):], a)
+
+
+# kernel B's warp tasks: member counts that leave partial aggregates in
+# every class 8..1024
+B_COUNTS = [1, 5, 8, 8, 9, 12, 16, 17, 30, 32, 33, 64, 65, 100, 128, 129,
+            256, 300, 512, 513, 1000, 1024]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ndev", [1, 3])
+@pytest.mark.parametrize("d", [1, 3, 4])
+def test_kernel_b_partial_aggregates_match_plain(rng, dev, d, ndev):
+    """Kernel B on partial aggregates of every class 8..1024 (one shard, or
+    three with ghost aggregates): members within 1e-5 of their own sum of
+    |terms|, ghost rows exactly zero, one launch, bitwise repeatable."""
+    from graph_embed_tpu_torch.parallel import sharded_ml as SML
+
+    counts = np.asarray(B_COUNTS)
+    v2a = rng.permutation(np.repeat(np.arange(counts.size), counts))
+    n = v2a.size
+    s = rng.integers(0, n, 3 * n)
+    r = rng.integers(0, n, 3 * n)
+    keep = s != r
+    g = from_edges(s[keep], r[keep], None, n=n, symmetrize=True, device=dev)
+    part = Partition.from_numpy(v2a, counts.size, device=dev)
+    params = MultilevelFAParams(sampled_slots_threshold=0)
+    layout = (MT.prepare_refine(g, part, params) if ndev == 1 else
+              SML.prepare_refine_sharded(g, part, params, ndev).layout)
+    x = torch.rand((layout.n_slots, d), device=dev) * 2 - 1
+    x = torch.where(layout.valid_slot[:, None], x, torch.zeros_like(x))
+    x[9] = x[8]   # two members of one aggregate coincide: d clamps at eps
+    before = cuda.LAUNCHES["bucket_repulsion"]
+    got = MT.exact_repulsion_cuda(x, layout, REPEL, EPS)
+    assert cuda.LAUNCHES["bucket_repulsion"] == before + 1
+    want = MT.exact_repulsion_plain(x, layout, REPEL, EPS)
+    scale = MT.exact_repulsion_plain(x, layout, REPEL, EPS, absolute=True)
+    torch.cuda.synchronize()
+    _assert_within_scale(got, want, scale)
+    assert not got[~layout.valid_slot].any()
+    assert torch.equal(MT.exact_repulsion_cuda(x, layout, REPEL, EPS), got)

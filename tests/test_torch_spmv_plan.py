@@ -149,3 +149,86 @@ def test_plain_walk_matches_jax_segment_sum(rng, d):
     want = np.asarray(JSEG.segment_sum(jnp.asarray(vals), jnp.asarray(seg),
                                        len(lengths)))
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
+
+
+# Kernel E (linlog attraction, csrc/edge_spmm.cu) walks the CSR as kernel
+# A does: a row of at most LONG_ROW entries by its thread, a longer one of
+# at most HUB entries by its warp (lane l takes entries l, l + 32, ...),
+# a hub by a block whose warp 0 adds each staged CHUNK under the same lane
+# rule.  Its sums are bitwise the parent's thread/warp walk only if a hub's
+# lane sequences are the warp walk's.
+
+LONG_ROW = 32        # csrc/edge_spmm.cu: LONG_ROW
+
+
+def lane_sequences(lo: int, hi: int, chunked: bool):
+    """Each lane's entries of the row [lo, hi), in the order the lane adds
+    them: the warp walk, or a hub's CHUNK passes from the row's start."""
+    seqs = [[] for _ in range(32)]
+    cuts = range(lo, hi, CHUNK) if chunked else [lo]
+    for c0 in cuts:
+        c1 = min(c0 + CHUNK, hi) if chunked else hi
+        for lane in range(32):
+            seqs[lane] += list(range(c0 + lane, c1, 32))
+    return seqs
+
+
+@pytest.mark.parametrize("profile", sorted(PROFILES))
+def test_linlog_classes_take_every_entry_once_in_order(rng, profile):
+    """E's three classes (thread, warp, hub) cover every row once by its
+    length alone, the thread rows in CSR order; a warp or hub row's lanes
+    together take every entry once, each lane in ascending order, and a
+    hub's passes (cut at multiples of CHUNK from its own start) give every
+    lane the warp walk's sequence."""
+    lengths = PROFILES[profile]
+    indptr = _indptr(lengths)
+    csr = segment.sorted_csr(torch.from_numpy(indptr), int(indptr[-1]))
+    hubs = set(csr.hub_rows.tolist())
+    for r, n in enumerate(lengths):
+        lo, hi = int(indptr[r]), int(indptr[r + 1])
+        cls = ("thread" if n <= LONG_ROW else "warp" if n <= HUB
+               else "hub")
+        assert (cls == "hub") == (r in hubs)
+        if cls == "thread":
+            continue
+        seqs = lane_sequences(lo, hi, chunked=cls == "hub")
+        taken = sorted(e for s in seqs for e in s)
+        assert taken == list(range(lo, hi))
+        assert all(s == sorted(s) for s in seqs)
+        assert seqs == lane_sequences(lo, hi, chunked=False)
+
+
+def _star_graph(n=3000, extra=4000, seed=3):
+    """A hub joined to every other vertex (a row of n - 1 > HUB entries)
+    plus random weighted edges."""
+    from graph_embed_tpu_torch import interop
+
+    r = np.random.default_rng(seed)
+    s = np.concatenate([np.zeros(n - 1, np.int64), r.integers(1, n, extra)])
+    t = np.concatenate([np.arange(1, n), r.integers(1, n, extra)])
+    keep = s != t
+    s, t = s[keep], t[keep]
+    w = r.uniform(0.5, 2.0, s.size)
+    ss, tt = np.concatenate([s, t]), np.concatenate([t, s])
+    order = np.lexsort((tt, ss))
+    return interop.graph(ss[order], tt[order], np.concatenate([w, w])[order],
+                         n)
+
+
+def test_linlog_csrs_carry_the_hub_list():
+    """The linlog CSRs kernel E runs on (the flat step's and the halo
+    step's over [x | pool]) carry kernel A's hub list, planned from their
+    own row pointers."""
+    from graph_embed_tpu_torch.forceatlas import tiled as TL
+    from graph_embed_tpu_torch.parallel import halo as PH
+    from graph_embed_tpu_torch.utils.params import ForceAtlasParams
+
+    g = _star_graph()
+    params = ForceAtlasParams(repulsion="sampled", linlog=True)
+    csrs = [TL.prepare_tiled(g, 3, params).csr]
+    plan = PH.build_halo_plan(g, 2)
+    csrs.append(PH.build_halo_csr(plan, params).csr)
+    for csr in csrs:
+        assert csr.w is not None and csr.n_rows <= csr.n_cols
+        assert csr.hub_rows.tolist() == ES.plan_hub_rows(csr.indptr).tolist()
+        assert csr.hub_rows.numel() == 1

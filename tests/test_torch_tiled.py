@@ -181,6 +181,39 @@ def test_tiled_step_matches_jax(rng, case):
                                rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("repulsion", ["exact", "centroids"])
+def test_tiled_step_exact_repulsion_matches_jax(rng, repulsion):
+    """Every repulsion name but 'sampled' and 'gram' takes exact repulsion
+    in the reference's tiled step (tiled.py:274-275), 'centroids'
+    included: the port's tiled_forces and one fa_step_tiled equal the JAX
+    package's on a small weighted graph from injected coordinates, to
+    1e-4 (test_tiled_step.py:40), forces relative to the largest force.  A
+    short layout under 'centroids' is the 'exact' one, bit for bit."""
+    gj = _weighted_random(rng, 300)
+    g = _port(gj)
+    params = ForceAtlasParams(repulsion=repulsion)
+    kw = dict(spmv_mode="packed")
+    tfa_j = JTL.prepare_tiled(gj, 3, params, interpret=True, **kw)
+    tfa = PTL.prepare_tiled(g, 3, params, **kw)
+    assert not PTL.fused_applies(tfa, params)
+    x = rng.uniform(-1, 1, (g.n, 3)).astype(np.float32)
+    fprev = rng.uniform(-1, 1, (g.n, 3)).astype(np.float32)
+    want_f = np.asarray(JTL.tiled_forces(jnp.asarray(x), tfa_j, params))
+    got_f = PTL.tiled_forces(torch.from_numpy(x), tfa, params).numpy()
+    _close(got_f, want_f, 1e-4)
+    xj, fj = JTL.fa_step_tiled(jnp.asarray(x), jnp.asarray(fprev), tfa_j,
+                               params)
+    got_x, got_f = PTL.fa_step_tiled(torch.from_numpy(x),
+                                     torch.from_numpy(fprev), tfa, params)
+    _close(got_f.numpy(), np.asarray(fj), 1e-4)
+    np.testing.assert_allclose(got_x.numpy(), np.asarray(xj), rtol=1e-4,
+                               atol=1e-4)
+    runs = [gp.force_atlas_tiled(g, 3, params=ForceAtlasParams(repulsion=r),
+                                 iterations=3, seed=4, device="cpu")
+            for r in (repulsion, "exact")]
+    assert torch.equal(runs[0], runs[1])
+
+
 @pytest.mark.parametrize("case", ["pure_dia", "unit_residual"])
 def test_tiled_loop_matches_jax(rng, case):
     """Five steps from one start, each on the ids the reference's loop
