@@ -26,8 +26,9 @@ Phases, one JSON line each:
             stream-only) on the
             community graph's residual CSR, exact on its weighted tiered
             CSR; kernel D on both flat graphs and the community graph (with
-            kernel A's residual y_res where there is one); kernels E and C
-            on the rmat graph under linlog.  Every
+            kernel A's residual y_res where there is one); kernel E on
+            the rmat graph under linlog, kernel C there at 7, 64 and 300
+            samples.  Every
             output element within RTOL of its own sum of |terms| (kernel D:
             f so, x' against the plain update applied to the kernel's own
             f); each kernel's time the median on the card alone
@@ -63,9 +64,12 @@ Phases, one JSON line each:
             rmat(20, 8): the plan (blk, B_max, boundary fraction, Ec_max,
             bytes of the ring's slot buffer and groups, host seconds);
             kernel F (the ring's cross-edge attraction) against its plain
-            version, and its eight launches over a filled slot buffer
-            timed on the card alone (enqueued behind a device sleep, so no
-            host dispatch between them), as its plain version is; the
+            version, and its eight launches over a filled slot buffer, the
+            operands checked once, timed on the card alone (enqueued
+            behind a device sleep, so no host dispatch between them), as
+            its plain version is, then each slot's launch alone with its
+            live and padding entries, and the host's enqueue of the eight
+            through the per-slot wrapper that checks every slot; the
             whole ring by events around it, on the card alone, and the
             host's time to enqueue it; 3 steps with the ring (overlap=True)
             against 3 with
@@ -111,6 +115,9 @@ MESH_SIDE = 128
 RTOL = 1e-5
 # the flat step: bench.py's samples, iterations per timing and timings
 FLAT_SAMPLES = 64
+# kernel C's sample counts: one staging pass below and at bench.py's 64,
+# two above
+C_SAMPLES = (7, FLAT_SAMPLES, 300)
 FLAT_ITERS = 20
 FLAT_REPEATS = 5
 LINLOG_ITERS = 5
@@ -561,9 +568,10 @@ def flat_params(linlog: bool = False, **kw):
                             **kw)
 
 
-def setup_flat(dev, mesh) -> dict:
+def setup_flat(dev, mesh=None) -> dict:
     """The flat step's graphs on the card, each with its tiled plan:
-    {name: (graph, TiledFA, prepare seconds)}, plus 'rmat_linlog'."""
+    {name: (graph, TiledFA, prepare seconds)}, plus 'rmat_linlog'; without
+    ``mesh`` the rmat plans alone."""
     import numpy as np
     import torch
 
@@ -582,6 +590,8 @@ def setup_flat(dev, mesh) -> dict:
     for name, g, linlog in ((f"mesh3d({MESH_SIDE})", mesh, False),
                             ("rmat(20,8)", rmat, False),
                             ("rmat(20,8) linlog", rmat, True)):
+        if g is None:
+            continue
         g = g.to(dev)
         t0 = time.perf_counter()
         tfa = TL.prepare_tiled(g, 3, flat_params(linlog))
@@ -595,15 +605,12 @@ def setup_flat(dev, mesh) -> dict:
     return flat
 
 
-def setup_lj(dev) -> dict:
-    """The LJ phase's plans on the card: {name: (graph, TiledFA, params,
-    prepare seconds)}.  The community graph is built once and planned four
-    ways; rmat(20, 8) is put in partition order with its own hierarchy."""
+def lj_graphs(dev) -> tuple:
+    """The LJ phase's two graphs on the card: community_rmat(512, 22, 8)
+    and rmat(20, 8) put in partition order with its own hierarchy."""
     import numpy as np
-    import torch
 
     import graph_embed_tpu_torch as gp
-    from graph_embed_tpu_torch.forceatlas import tiled as TL
 
     t0 = time.perf_counter()
     cg = gp.community_rmat(*LJ_GRAPH, seed=1)
@@ -622,7 +629,18 @@ def setup_lj(dev) -> dict:
     emit(phase="setup", graph="rmat(20, 8, seed=1) partition-ordered",
          n=og.n, stored_entries=og.num_edges, levels=len(levels),
          seconds=time.perf_counter() - t0)
-    cg, og = cg.to(dev), og.to(dev)
+    return cg.to(dev), og.to(dev)
+
+
+def setup_lj(dev, graphs: tuple | None = None) -> dict:
+    """The LJ phase's plans on the card: {name: (graph, TiledFA, params,
+    prepare seconds)}.  The community graph (``lj_graphs``, or ``graphs``)
+    is planned four ways, the partition-ordered rmat graph two."""
+    import torch
+
+    from graph_embed_tpu_torch.forceatlas import tiled as TL
+
+    cg, og = lj_graphs(dev) if graphs is None else graphs
     plans = (("community f32", cg, flat_params(), {}),
              ("community bf16", cg, flat_params(x_precision="bf16"), {}),
              ("community tiered", cg, flat_params(), LJ_TIERS),
@@ -841,27 +859,38 @@ def phase_flat_kernels(torch, flat: dict, lj: dict, dev) -> dict:
         **bound(spmv_bound(csr, 3)["bytes"], csr.nnz * (5 * 3 + 6)),
         library_ms=None)
 
-    idx = RP.draw_samples(g.n, FLAT_SAMPLES, gen, dev)
     kw = dict(repel=params.repel, eps=params.epsilon)
-    got = RP.repulsion_sampled_cuda(x, tfa.deg_p1, idx, **kw)
-    want = RP.repulsion_sampled_plain(x, tfa.deg_p1, idx, **kw)
-    scale = RP.repulsion_sampled_plain(x, tfa.deg_p1, idx, absolute=True,
-                                       **kw)
-    torch.cuda.synchronize()
-    err, ratio = hold("sampled_repulsion", got, want, scale,
-                      graph="rmat(20,8)", n=g.n, samples=FLAT_SAMPLES)
-    ms, host_ms = device_ms(lambda: RP.repulsion_sampled_cuda(
-        x, tfa.deg_p1, idx, **kw))
-    out["sampled_repulsion"] = dict(
-        max_abs_err=err, max_err_over_scale=ratio, ms=ms, host_ms=host_ms,
-        plain_ms=cuda_ms(lambda: RP.repulsion_sampled_plain(
-            x, tfa.deg_p1, idx, **kw), reps=5, warmup=1),
-        **bound(4 * g.n * (3 + 1 + 3) + 4 * FLAT_SAMPLES,
-                g.n * FLAT_SAMPLES * pair_ops(3)),
-        library_ms=None)
-    for name in ("edge_linlog", "sampled_repulsion"):
-        emit(phase="kernels", kernel=name, graph="rmat(20,8)",
-             **{k: out[name][k] for k in ("ms", "host_ms", "plain_ms")})
+    c_err = []
+    for s in C_SAMPLES:
+        idx = RP.draw_samples(g.n, s, gen, dev)
+        got = RP.repulsion_sampled_cuda(x, tfa.deg_p1, idx, **kw)
+        want = RP.repulsion_sampled_plain(x, tfa.deg_p1, idx, **kw)
+        scale = RP.repulsion_sampled_plain(x, tfa.deg_p1, idx,
+                                           absolute=True, **kw)
+        torch.cuda.synchronize()
+        err, ratio = hold("sampled_repulsion", got, want, scale,
+                          graph="rmat(20,8)", n=g.n, samples=s)
+        ms, host_ms = device_ms(lambda: RP.repulsion_sampled_cuda(
+            x, tfa.deg_p1, idx, **kw))
+        c = dict(max_abs_err=err, max_err_over_scale=ratio, ms=ms,
+                 host_ms=host_ms,
+                 plain_ms=cuda_ms(lambda: RP.repulsion_sampled_plain(
+                     x, tfa.deg_p1, idx, **kw), reps=5, warmup=1),
+                 **bound(4 * g.n * (3 + 1 + 3) + 4 * s,
+                         g.n * s * pair_ops(3)),
+                 library_ms=None)
+        emit(phase="kernels", kernel="sampled_repulsion", graph="rmat(20,8)",
+             samples=s, **{k: c[k] for k in ("ms", "host_ms", "plain_ms",
+                                              "bound_ms", "bound_by")})
+        c_err.append((err, ratio))
+        if s == FLAT_SAMPLES:
+            out["sampled_repulsion"] = c
+    # the summary's times at bench.py's samples, its error the worst
+    out["sampled_repulsion"].update(
+        max_abs_err=max(e for e, _ in c_err),
+        max_err_over_scale=max(r for _, r in c_err))
+    emit(phase="kernels", kernel="edge_linlog", graph="rmat(20,8)",
+         **{k: out["edge_linlog"][k] for k in ("ms", "host_ms", "plain_ms")})
     return out
 
 
@@ -1088,20 +1117,50 @@ def halo_steps(torch, g, dev):
                                steps_seconds=time.perf_counter() - t0)
 
 
-def ring_bound(ring, plan, d: int = 3) -> dict:
-    """Kernel F over every slot: the four group arrays read once, each
-    distinct endpoint row (sender rows, exported rows) once, the per-edge
-    forces written once; per live edge 3 d + 8 operations (the distance,
-    sqrt, clamp, weight, attract, divide and mask, d products).  The ring's
-    forwards are copies the one-card transport adds: not counted."""
+def filled_slots(torch, x, plan, ring):
+    """The ring's slot buffer [slot, shard, B_max, d] as the forwards leave
+    it: slot k of shard s holds the boundary block of shard (s - k) %
+    ndev."""
+    blocks = x[ring.bidx].view(plan.ndev, plan.B_max, x.shape[1])
+    return torch.stack([torch.roll(blocks, k, 0) for k in range(plan.ndev)])
+
+
+def ring_bound(ring, plan, params, d: int = 3) -> dict:
+    """Kernel F over every slot: each live entry's cs and cr (and cw under
+    use_weights) read once, each group's live count, each distinct
+    endpoint row (sender rows, exported rows; the sender's degree under
+    nohubs) once, the per-edge forces written once, padding included; per
+    live edge 3 d + 8 operations (the distance, sqrt, clamp, weight,
+    attract, divide and mask, d products).  The ring's forwards are copies
+    the one-card transport adds: not counted."""
     import numpy as np
 
     rows = ring.csr.indptr[1:] != ring.csr.indptr[:-1]
     senders = int(rows.sum())
     exported = int(np.asarray(plan.boundary_counts).sum())
-    entries = ring.cs.numel()
-    return bound(16 * entries + 4 * d * (senders + exported)
-                 + 4 * d * entries, ring.live_edges * (3 * d + 8))
+    entry = 8 + 4 * bool(params.use_weights)
+    sender_row = 4 * d + 4 * bool(params.nohubs)
+    return bound(entry * ring.live_edges + 4 * ring.live.numel()
+                 + sender_row * senders + 4 * d * exported
+                 + 4 * d * ring.cs.numel(), ring.live_edges * (3 * d + 8))
+
+
+def halo_step_ms(torch, step, x0, draw) -> float:
+    """Median ms per iteration of a halo step by CUDA events: HALO_REPEATS
+    timings of HALO_ITERS iterations, after one warm-up iteration from
+    ``x0``; ``draw()`` gives each iteration's samples."""
+    xs, f = step(x0, torch.zeros_like(x0), draw())
+    per = []
+    for _ in range(HALO_REPEATS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(HALO_ITERS):
+            xs, f = step(xs, f, draw())
+        b.record()
+        b.synchronize()
+        per.append(a.elapsed_time(b) / HALO_ITERS)
+    return statistics.median(per)
 
 
 def phase_halo(torch, lj: dict, dev) -> dict:
@@ -1137,38 +1196,50 @@ def phase_halo(torch, lj: dict, dev) -> dict:
                           graph=name, entries=ring.cs.numel(),
                           live=ring.live_edges)
         # kernel F alone: its launches over the eight slots of a slot
-        # buffer filled in advance (slot k of shard s holds the block of
-        # shard (s - k) % ndev), timed on the card alone, as its plain
-        # version is; it must give the ring's own output
-        ndev = plan.ndev
-        blocks = x[ring.bidx].view(ndev, plan.B_max, 3)
-        buf = torch.stack([torch.roll(blocks, k, 0) for k in range(ndev)])
-        alone = torch.empty_like(got)
-
-        def slots(fn, out=None):
-            return [fn(buf[k], x, ov.deg_p1, ring.cs[k], ring.cr[k],
-                       ring.cw[k], ring.mask[k], blk=ring.blk, params=params,
-                       **({} if out is None else {"out": out[k]}))
-                    for k in range(ndev)]
-
-        slots(OV.slot_forces_cuda, alone)
+        # buffer filled in advance, the operands checked once, timed on the
+        # card alone, as its plain version is; it must give the ring's own
+        # output.  Beside it the host's enqueue of the eight launches
+        # through the public per-slot wrapper, which checks every slot.
+        buf = filled_slots(torch, x, plan, ring)
+        alone = OV.ring_slot_forces(buf, x, ov.deg_p1, ring, params)
         torch.cuda.synchronize()
         require(torch.equal(alone, got), f"halo {name}: kernel F over a "
                 "filled slot buffer gives the ring's output")
-        ms, host_ms = device_ms(lambda: slots(OV.slot_forces_cuda, alone))
-        plain_ms, _ = device_ms(lambda: slots(OV.slot_forces_plain),
-                                reps=5, warmup=1)
+
+        def slots(fn, last, out=None):
+            # ``last``: the live counts for the kernel, the mask for plain
+            return [fn(buf[k], x, ov.deg_p1, ring.cs[k], ring.cr[k],
+                       ring.cw[k], last[k], blk=ring.blk, params=params,
+                       **({} if out is None else {"out": out[k]}))
+                    for k in range(plan.ndev)]
+
+        ms, host_ms = device_ms(lambda: OV.ring_slot_forces(
+            buf, x, ov.deg_p1, ring, params, out=alone))
+        _, host_checked_ms = device_ms(lambda: slots(
+            OV.slot_forces_cuda, ring.live, torch.empty_like(alone)))
+        plain_ms, _ = device_ms(lambda: slots(OV.slot_forces_plain,
+                                              ring.mask), reps=5, warmup=1)
+        # each slot's launch alone, with its live and padding entries
+        live = ring.live.sum(dim=1).tolist()
+        per_slot = [dict(slot=k, live=live[k],
+                         padding=plan.ndev * ring.ec - live[k],
+                         ms=device_ms(lambda k=k: OV.ring_slot_forces(
+                             buf, x, ov.deg_p1, ring, params, out=alone,
+                             slots=(k,)))[0])
+                    for k in range(plan.ndev)]
         # the whole ring (gather, forwards, events, launches): by events
         # around the call, on the card alone, and the host's enqueueing
         ring_ms = cuda_ms(lambda: OV.ring_cross_forces(x, ov.deg_p1, ring,
                                                        params))
         ring_dev_ms, ring_host_ms = device_ms(
             lambda: OV.ring_cross_forces(x, ov.deg_p1, ring, params))
-        f_bound = ring_bound(ring, plan)
+        f_bound = ring_bound(ring, plan, params)
         emit(phase="kernels", kernel="ring_attraction", graph=name, ms=ms,
-             host_ms=host_ms, plain_ms=plain_ms, ring_ms=ring_ms,
-             ring_device_ms=ring_dev_ms, ring_host_ms=ring_host_ms,
-             **f_bound)
+             host_ms=host_ms, host_ms_checked_per_slot=host_checked_ms,
+             plain_ms=plain_ms, slot0_ms=per_slot[0]["ms"],
+             slots_1_on_ms=sum(s["ms"] for s in per_slot[1:]),
+             slots=per_slot, ring_ms=ring_ms, ring_device_ms=ring_dev_ms,
+             ring_host_ms=ring_host_ms, **f_bound)
 
         # the ring against the gather: one start, the same samples
         x0 = torch.zeros_like(x)
@@ -1197,20 +1268,8 @@ def phase_halo(torch, lj: dict, dev) -> dict:
                 f"halo {name}: kernel A runs the tiled attraction")
 
         # ms per iteration of both, beside the single-shard step's
-        times = {}
-        for label, step in (("overlap", ov), ("collective", col)):
-            xs, f = step(x0, torch.zeros_like(x0), ids[0])   # warm-up
-            per = []
-            for rep in range(HALO_REPEATS):
-                a = torch.cuda.Event(enable_timing=True)
-                b = torch.cuda.Event(enable_timing=True)
-                a.record()
-                for _ in range(HALO_ITERS):
-                    xs, f = step(xs, f, ov.draw(gen))
-                b.record()
-                b.synchronize()
-                per.append(a.elapsed_time(b) / HALO_ITERS)
-            times[label] = statistics.median(per)
+        times = {label: halo_step_ms(torch, step, x0, lambda: ov.draw(gen))
+                 for label, step in (("overlap", ov), ("collective", col))}
         # where a step's time goes: the attraction (kernel A), the ring
         # (kernel F with its transport, above), the gram repulsion (plain
         # PyTorch, as the reference's halo.py:547-558 is plain jnp)

@@ -25,17 +25,11 @@
 // bytes (x_i, f_prev, y_res, K DIA weights, deg_w, deg + 1 in; x' and f
 // out; the K neighbour rows are mostly L1/L2 hits along the mesh's
 // strides): that bounds it at small s.  At s = 64 samples the pairs weigh
-// as much: each vertex-sample pair is 16 instructions (3 differences, d^2
-// in 3, a clamp, an rsqrt, the cube and weight in 3, the colsum add and 3
-// multiply-adds), so the SM's issue rate, not HBM, sets that half, and a
-// thread that owns one vertex also spends five scalar shared loads per
-// sample (the sample's coordinates, weight and id).  Design:
-// * each thread owns V consecutive vertices, so each staged sample is read
-//   from shared memory once for all V: one 16-byte record {x, y, z,
-//   deg + 1} (d = 4: the coordinates, the weight apart) and its id;
-// * the self-pair test runs only for a sample that is one of the thread's
-//   V vertices; rsqrt skips its subnormal-input scaling when eps^2 is a
-//   normal float, as max(d^2, eps^2) then is (the same bits);
+// as much, and the SM's issue rate, not HBM, sets that half.  Design:
+// * the sample loop of sampled_repulsion.cuh (kernel C's too): V
+//   consecutive vertices per thread sharing one 16-byte staged sample
+//   record, the self-pair test only where a sample is one of them, rsqrt
+//   without subnormal scaling where eps^2 is normal (the same bits);
 // * one block per tile of THREADS * V vertices, the s samples staged
 //   SAMPLES at a time (a grid of resident blocks looping over tiles, which
 //   gathers the samples once per block, ran slower: blocks that start
@@ -50,17 +44,16 @@
 
 #include <cuda_runtime.h>
 
-#include <cfloat>
-#include <cstdint>
+#include "sampled_repulsion.cuh"
 
 namespace {
+
+using ge::V;
 
 constexpr int MAX_OFFSETS = 32;  // ops/dia.py MAX_OFFSETS
 constexpr float TINY = 1e-30f;   // forceatlas/forces.py TINY
 constexpr int THREADS = 256;
-constexpr int V = 4;             // consecutive vertices per thread
 constexpr int TILE = THREADS * V;
-constexpr int SAMPLES = 256;     // samples staged per pass
 
 struct StepParams {
   float coef;     // repel * n / s
@@ -72,185 +65,6 @@ struct StepParams {
   float ksmax;
 };
 
-template <int D>
-struct Samples {
-  float4 rec[SAMPLES];                 // coordinates; d <= 3: .w = deg + 1
-  float deg[D == 4 ? SAMPLES : 1];     // d = 4: deg + 1
-  int id[SAMPLES];
-};
-
-// samples [j0, j0 + cnt) of the draw into shared memory
-template <int D>
-__device__ __forceinline__ void stage_samples(
-    Samples<D>& sm, const float* __restrict__ x,
-    const float* __restrict__ deg_p1, const int* __restrict__ idx, int j0,
-    int cnt) {
-  for (int t = threadIdx.x; t < cnt; t += THREADS) {
-    const int id = idx[j0 + t];
-    float r[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int k = 0; k < D; ++k) r[k] = x[static_cast<size_t>(id) * D + k];
-    if (D < 4)
-      r[3] = deg_p1[id];
-    else
-      sm.deg[t] = deg_p1[id];
-    sm.rec[t] = make_float4(r[0], r[1], r[2], r[3]);
-    sm.id[t] = id;
-  }
-}
-
-static_assert(V % 4 == 0, "a thread's V rows are whole 16-byte words");
-
-__device__ __forceinline__ bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
-}
-
-// N contiguous floats from p into q, in 16-byte loads
-template <int N>
-__device__ __forceinline__ void load_span(const float* __restrict__ p,
-                                          float (&q)[N]) {
-#pragma unroll
-  for (int u = 0; u < N / 4; ++u) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(p) + u);
-    q[4 * u] = v.x;
-    q[4 * u + 1] = v.y;
-    q[4 * u + 2] = v.z;
-    q[4 * u + 3] = v.w;
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void store_span(float* __restrict__ p,
-                                           const float (&q)[N]) {
-#pragma unroll
-  for (int u = 0; u < N / 4; ++u)
-    reinterpret_cast<float4*>(p)[u] =
-        make_float4(q[4 * u], q[4 * u + 1], q[4 * u + 2], q[4 * u + 3]);
-}
-
-// rows i0 .. i0 + V - 1 of a row-major [n, D] array, 0 past n: V * D
-// contiguous floats, 16-byte loads where the V rows exist and align
-template <int D>
-__device__ __forceinline__ void load_rows(const float* __restrict__ a,
-                                          int i0, int n, float (&r)[V][D]) {
-  const float* p = a + static_cast<size_t>(i0) * D;
-  if (i0 + V <= n && aligned16(p)) {
-    float q[V * D];
-    load_span<V * D>(p, q);
-#pragma unroll
-    for (int v = 0; v < V; ++v)
-#pragma unroll
-      for (int k = 0; k < D; ++k) r[v][k] = q[v * D + k];
-  } else {
-#pragma unroll
-    for (int v = 0; v < V; ++v)
-#pragma unroll
-      for (int k = 0; k < D; ++k) r[v][k] = i0 + v < n ? p[v * D + k] : 0.f;
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void store_rows(float* __restrict__ a, int i0,
-                                           int n, const float (&r)[V][D]) {
-  float* p = a + static_cast<size_t>(i0) * D;
-  if (i0 + V <= n && aligned16(p)) {
-    float q[V * D];
-#pragma unroll
-    for (int v = 0; v < V; ++v)
-#pragma unroll
-      for (int k = 0; k < D; ++k) q[v * D + k] = r[v][k];
-    store_span<V * D>(p, q);
-  } else {
-#pragma unroll
-    for (int v = 0; v < V; ++v)
-      if (i0 + v < n) {
-#pragma unroll
-        for (int k = 0; k < D; ++k) p[v * D + k] = r[v][k];
-      }
-  }
-}
-
-// entries i0 .. i0 + V - 1 of a [n] vector, 0 past n
-__device__ __forceinline__ void load_vec(const float* __restrict__ a, int i0,
-                                         int n, float (&r)[V]) {
-  if (i0 + V <= n && aligned16(a + i0)) {
-    load_span<V>(a + i0, r);
-  } else {
-#pragma unroll
-    for (int v = 0; v < V; ++v) r[v] = i0 + v < n ? a[i0 + v] : 0.f;
-  }
-}
-
-// 1/sqrt(v), the approximation of rsqrtf without its scaling of subnormal
-// inputs: the same bits wherever v is a normal float
-__device__ __forceinline__ float rsqrt_ftz(float v) {
-  float r;
-  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
-  return r;
-}
-
-// one vertex-sample pair of the estimator (sampled_repulsion.cuh), added
-// to the vertex's sums; FTZ where eps^2 is a normal float, so that
-// max(d2, eps^2) is one too
-template <int D, bool FTZ>
-__device__ __forceinline__ void pair(const float (&xs)[4], float degs,
-                                     bool self, const float (&xi)[D],
-                                     float eps2, float& colsum,
-                                     float (&acc)[D]) {
-  float d2 = 0.f;
-#pragma unroll
-  for (int k = 0; k < D; ++k) {
-    const float dk = xs[k] - xi[k];
-    d2 += dk * dk;
-  }
-  const float m = fmaxf(d2, eps2);
-  const float inv = FTZ ? rsqrt_ftz(m) : rsqrtf(m);
-  const float w = self ? 0.f : degs * (inv * inv * inv);
-  colsum += w;
-#pragma unroll
-  for (int k = 0; k < D; ++k) acc[k] += w * xs[k];
-}
-
-// the V vertices' sampled repulsion sums (colsum, acc), each vertex's
-// samples in draw order; every thread of the block must call it
-template <int D, bool FTZ>
-__device__ __forceinline__ void sample_sums(
-    Samples<D>& sm, const float* __restrict__ x,
-    const float* __restrict__ deg_p1, const int* __restrict__ idx, int s,
-    int i0, float eps2, const float (&xi)[V][D],
-    float (&colsum)[V], float (&acc)[V][D]) {
-#pragma unroll
-  for (int v = 0; v < V; ++v) {
-    colsum[v] = 0.f;
-#pragma unroll
-    for (int k = 0; k < D; ++k) acc[v][k] = 0.f;
-  }
-  for (int j0 = 0; j0 < s; j0 += SAMPLES) {
-    const int cnt = min(SAMPLES, s - j0);
-    __syncthreads();
-    stage_samples<D>(sm, x, deg_p1, idx, j0, cnt);
-    __syncthreads();
-#pragma unroll 4
-    for (int t = 0; t < cnt; ++t) {
-      const float4 rec = sm.rec[t];
-      const float xs[4] = {rec.x, rec.y, rec.z, rec.w};
-      const float degs = D < 4 ? rec.w : sm.deg[t];
-      const int sid = sm.id[t];
-      // the self-pair test only where the sample is one of the V vertices
-      if (static_cast<unsigned>(sid - i0) < static_cast<unsigned>(V)) {
-#pragma unroll
-        for (int v = 0; v < V; ++v)
-          pair<D, FTZ>(xs, degs, sid == i0 + v, xi[v], eps2, colsum[v],
-                       acc[v]);
-      } else {
-#pragma unroll
-        for (int v = 0; v < V; ++v)
-          pair<D, FTZ>(xs, degs, false, xi[v], eps2, colsum[v], acc[v]);
-      }
-    }
-  }
-}
-
 // y = y_res + the DIA offsets' terms in plan order, for the V vertices
 template <int D>
 __device__ __forceinline__ void dia_sums(
@@ -258,7 +72,7 @@ __device__ __forceinline__ void dia_sums(
     const float* __restrict__ y_res, const float* __restrict__ x, int i0,
     float (&y)[V][D]) {
   if (y_res != nullptr) {
-    load_rows<D>(y_res, i0, n, y);
+    ge::load_rows<D>(y_res, i0, n, y);
   } else {
 #pragma unroll
     for (int v = 0; v < V; ++v)
@@ -267,7 +81,7 @@ __device__ __forceinline__ void dia_sums(
   }
   for (int o = 0; o < n_off; ++o) {
     float w[V];
-    load_vec(dia_w + static_cast<size_t>(o) * n, i0, n, w);
+    ge::load_vec(dia_w + static_cast<size_t>(o) * n, i0, n, w);
 #pragma unroll
     for (int v = 0; v < V; ++v) {
       const long long j = static_cast<long long>(i0 + v) + off[o];
@@ -290,20 +104,21 @@ fused_step_kernel(int n, int s, int n_off, const int* __restrict__ offsets,
                   const float* __restrict__ deg_p1,
                   const int* __restrict__ idx, StepParams p,
                   float* __restrict__ x_out, float* __restrict__ f_out) {
-  __shared__ Samples<D> sm;
+  __shared__ ge::Samples<D> sm;
   __shared__ int off[MAX_OFFSETS];
   if (threadIdx.x < n_off) off[threadIdx.x] = offsets[threadIdx.x];
   const int i0 = blockIdx.x * TILE + threadIdx.x * V;
   float xi[V][D], colsum[V], acc[V][D], y[V][D];
-  load_rows<D>(x, i0, n, xi);
+  ge::load_rows<D>(x, i0, n, xi);
   // its first barrier also publishes ``off``
-  sample_sums<D, FTZ>(sm, x, deg_p1, idx, s, i0, p.eps2, xi, colsum, acc);
+  ge::sample_sums<D, FTZ, THREADS>(sm, x, deg_p1, idx, s, i0, p.eps2, xi,
+                                   colsum, acc);
   dia_sums<D>(n, n_off, off, dia_w, y_res, x, i0, y);
 
   float fp[V][D], dp1[V], dw[V];
-  load_rows<D>(f_prev, i0, n, fp);
-  load_vec(deg_p1, i0, n, dp1);
-  load_vec(deg_w, i0, n, dw);
+  ge::load_rows<D>(f_prev, i0, n, fp);
+  ge::load_vec(deg_p1, i0, n, dp1);
+  ge::load_vec(deg_w, i0, n, dw);
   float xo[V][D], f[V][D];
 #pragma unroll
   for (int v = 0; v < V; ++v) {
@@ -333,8 +148,8 @@ fused_step_kernel(int n, int s, int n_off, const int* __restrict__ offsets,
 #pragma unroll
     for (int k = 0; k < D; ++k) xo[v][k] = xi[v][k] + f[v][k] * speed;
   }
-  store_rows<D>(x_out, i0, n, xo);
-  store_rows<D>(f_out, i0, n, f);
+  ge::store_rows<D>(x_out, i0, n, xo);
+  ge::store_rows<D>(f_out, i0, n, f);
 }
 
 template <int D, bool FTZ>
@@ -353,7 +168,7 @@ void launch(int n, int s, int n_off, const int* offsets, const float* dia_w,
             const float* y_res, const float* x, const float* f_prev,
             const float* deg_w, const float* deg_p1, const int* idx,
             StepParams p, float* x_out, float* f_out, cudaStream_t stream) {
-  if (p.eps2 >= FLT_MIN)
+  if (ge::use_ftz(p.eps2))
     launch_as<D, true>(n, s, n_off, offsets, dia_w, y_res, x, f_prev, deg_w,
                        deg_p1, idx, p, x_out, f_out, stream);
   else

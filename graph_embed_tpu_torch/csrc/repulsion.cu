@@ -8,10 +8,17 @@
 //
 // Bound on this card: operations.  Each vertex does s sample terms of
 // ~3d+8 float32 operations and one rsqrt against (2d+1)*4 bytes of its own
-// state; the samples sit in shared memory.  Design: one thread per vertex,
-// samples staged per block and read as broadcasts, summed in draw order
-// (deterministic).  Later work: several vertices per thread to reuse each
-// staged sample from registers.
+// state; the samples sit in shared memory.  Design: kernel D's sample loop
+// (sampled_repulsion.cuh): V consecutive vertices per thread, each staged
+// sample one 16-byte shared record read once for all V, the self-pair
+// test only where a sample is one of them, rsqrt without subnormal scaling
+// where eps^2 is normal; rows read and written in 16-byte words.  One
+// block per tile of BLOCK * V vertices: the whole grid is resident at
+// once, so the SM that holds the most blocks sets the time, and blocks of
+// 128 threads (twice kernel D's count of blocks) spread the tiles more
+// evenly over the 132 SMs.  Every vertex adds its samples in draw order
+// with the expressions of a thread-per-vertex walk (deterministic,
+// bitwise that walk's).
 
 #include <cuda_runtime.h>
 
@@ -19,34 +26,47 @@
 
 namespace {
 
-template <int D>
-__global__ void __launch_bounds__(ge::ROW_BLOCK)
+using ge::V;
+
+constexpr int BLOCK = 128;
+constexpr int TILE = BLOCK * V;
+
+template <int D, bool FTZ>
+__global__ void __launch_bounds__(BLOCK)
 repulsion_kernel(int n, int s, const float* __restrict__ x,
                  const float* __restrict__ deg_p1,
                  const int* __restrict__ idx, float coef, float eps2,
                  float* __restrict__ out) {
-  __shared__ ge::SampleTile<D> tile;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool active = i < n;
-  float xi[D], f[D];
+  __shared__ ge::Samples<D> sm;
+  const int i0 = blockIdx.x * TILE + threadIdx.x * V;
+  float xi[V][D], colsum[V], acc[V][D];
+  ge::load_rows<D>(x, i0, n, xi);
+  ge::sample_sums<D, FTZ, BLOCK>(sm, x, deg_p1, idx, s, i0, eps2, xi,
+                                 colsum, acc);
+  float dp1[V], rep[V][D];
+  ge::load_vec(deg_p1, i0, n, dp1);
 #pragma unroll
-  for (int k = 0; k < D; ++k)
-    xi[k] = active ? x[static_cast<size_t>(i) * D + k] : 0.f;
-  ge::sampled_repulsion_row<D>(x, deg_p1, idx, s, i, active, xi, eps2, tile,
-                               f);
-  if (!active) return;
-  const float scale = coef * deg_p1[i];
+  for (int v = 0; v < V; ++v) {
+    const float scale = coef * dp1[v];
 #pragma unroll
-  for (int k = 0; k < D; ++k)
-    out[static_cast<size_t>(i) * D + k] = scale * f[k];
+    for (int k = 0; k < D; ++k) {
+      const float f = xi[v][k] * colsum[v] - acc[v][k];
+      rep[v][k] = scale * f;
+    }
+  }
+  ge::store_rows<D>(out, i0, n, rep);
 }
 
 template <int D>
 void launch(int n, int s, const float* x, const float* deg_p1, const int* idx,
             float coef, float eps2, float* out, cudaStream_t stream) {
-  const int grid = (n + ge::ROW_BLOCK - 1) / ge::ROW_BLOCK;
-  repulsion_kernel<D><<<grid, ge::ROW_BLOCK, 0, stream>>>(
-      n, s, x, deg_p1, idx, coef, eps2, out);
+  const int grid = (n + TILE - 1) / TILE;
+  if (ge::use_ftz(eps2))
+    repulsion_kernel<D, true><<<grid, BLOCK, 0, stream>>>(
+        n, s, x, deg_p1, idx, coef, eps2, out);
+  else
+    repulsion_kernel<D, false><<<grid, BLOCK, 0, stream>>>(
+        n, s, x, deg_p1, idx, coef, eps2, out);
 }
 
 }  // namespace

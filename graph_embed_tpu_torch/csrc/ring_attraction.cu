@@ -24,17 +24,32 @@
 // right neighbour's slot k + 1 is a copy on a side stream (overlap.py), and
 // this kernel runs slot k on the compute stream meanwhile.
 //
-// Bound on this card: bytes.  Per edge the kernel reads cs, cr, cw and mask
-// (16 bytes), and for a live edge gathers the two endpoint rows (4 * d bytes
-// each) and, under nohubs, the sender's degree (4 bytes); it writes 4 * d
-// bytes.  At d = 3 a live edge moves 52 bytes against about 20 operations,
-// far below the card's ~20 operations per byte, so the time is bytes over
-// 3.35 TB/s.  Design: one thread per (shard, edge) of the slot, neighbouring
-// threads on neighbouring edges, so the four group arrays are read and the
-// output written in whole cache lines; the gathered block rows of one slot
-// ([ndev, B_max, d]) are small enough to stay in the 50 MB L2.  No atomics:
-// the sum per sender runs after, in a fixed order.  Later work: fuse that
-// sum into the kernel, and sort each slot's edges by sender for locality.
+// Bound on this card: bytes.  Per live edge the kernel reads cs, cr and,
+// with use_weights, cw (12 bytes), and gathers the two endpoint rows (4 * d
+// bytes each) and, under nohubs, the sender's degree (4 bytes); per group
+// it reads the live count; it writes 4 * d bytes for every entry, padding
+// included.  At d = 3 a live edge moves 48 bytes against about 20
+// operations, far below the card's ~20 operations per byte, so the time is
+// bytes over 3.35 TB/s.  What takes most of it is the endpoint gathers:
+// random 12-byte rows, each at least one 32-byte sector, in DRAM pages that
+// are not reused.
+// Design (one thread per entry; 2 or 4 consecutive entries per thread ran
+// slower, as did 128-thread blocks):
+// * the live entries of a group are a prefix with mask 1 (the plan pads
+//   each group's tail; ring_groups checks both), and the kernel takes each
+//   group's live count: an entry past it is written as zero with nothing
+//   read (the empty slot 0 is a store pass), and a live entry reads cs, cr
+//   and cw; no mask is read;
+// * both endpoint rows are gathered whatever the entry (a ghost sender
+//   reads row 0 of its shard, and its result is replaced by zero), so no
+//   branch stands between an entry's group loads and its gathers;
+// * the group arrays and the output, each touched once, go through the
+//   cache-streaming path (ld.cs, st.cs), so that they displace less of the
+//   gathered rows from the 50 MB L2;
+// * grid y is the shard, so a thread finds its group without a division.
+// Each entry's arithmetic is the parent's one-thread-per-entry expression
+// (its factor mask, 1 on a live entry, dropped), so no bit changes.  No
+// atomics: the sum per sender runs after, in a fixed order.
 
 #include <cuda_runtime.h>
 
@@ -53,80 +68,91 @@ struct FaParams {
 
 template <int D>
 __global__ void __launch_bounds__(BLOCK)
-ring_slot_kernel(int n_edges, int ec, int blk, int b_max,
+ring_slot_kernel(int ec, int blk, int b_max, const int* __restrict__ live,
                  const int* __restrict__ cs, const int* __restrict__ cr,
                  const float* __restrict__ cw,
-                 const float* __restrict__ mask,
                  const float* __restrict__ block,
                  const float* __restrict__ x,
                  const float* __restrict__ deg_p1, FaParams p,
                  float* __restrict__ out) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n_edges) return;
-  const int shard = t / ec;
-  const int s = __ldg(cs + t);
-  const float m = __ldg(mask + t);
-  float* o = out + static_cast<size_t>(t) * D;
-  if (m == 0.f || s >= blk) {
+  const int shard = blockIdx.y;
+  const int e = blockIdx.x * BLOCK + threadIdx.x;
+  if (e >= ec) return;
+  const size_t g = static_cast<size_t>(shard) * ec + e;
+  float* o = out + g * D;
+  if (e >= __ldg(live + shard)) {
 #pragma unroll
-    for (int k = 0; k < D; ++k) o[k] = 0.f;
+    for (int k = 0; k < D; ++k) __stcs(o + k, 0.f);
     return;
   }
-  const size_t row = static_cast<size_t>(shard) * blk + s;
+  const int s = __ldcs(cs + g);
+  const int r = __ldcs(cr + g);
+  const float a = p.use_weights ? __ldcs(cw + g) : 1.f;
+  const bool on = s < blk;
+  const size_t row = static_cast<size_t>(shard) * blk + (on ? s : 0);
   const float* xs = x + row * D;
   const float* xr =
-      block + (static_cast<size_t>(shard) * b_max + __ldg(cr + t)) * D;
+      block + (static_cast<size_t>(shard) * b_max + (on ? r : 0)) * D;
+  float vs[D], vr[D];
+#pragma unroll
+  for (int k = 0; k < D; ++k) {
+    vr[k] = __ldg(xr + k);
+    vs[k] = __ldg(xs + k);
+  }
+  const float dg = p.nohubs ? __ldg(deg_p1 + row) : 1.f;
   float diff[D];
   float d2 = 0.f;
 #pragma unroll
   for (int k = 0; k < D; ++k) {
-    diff[k] = __ldg(xr + k) - __ldg(xs + k);
+    diff[k] = vr[k] - vs[k];
     d2 += diff[k] * diff[k];
   }
   const float dist = fmaxf(sqrtf(d2), p.eps);
   float fa = p.linlog ? log1pf(dist) : dist;
-  const float a = p.use_weights ? __ldg(cw + t) : 1.f;
   if (p.delta == 1.f) {
     fa = fa * a;
   } else if (p.delta != 0.f) {
     const float sign = static_cast<float>((a > 0.f) - (a < 0.f));
     fa = sign * powf(fabsf(a), p.delta) * fa;
   }
-  if (p.nohubs) fa = fa / __ldg(deg_p1 + row);
-  const float coef = p.attract * fa / dist * m;
+  if (p.nohubs) fa = fa / dg;
+  const float coef = p.attract * fa / dist;
 #pragma unroll
-  for (int k = 0; k < D; ++k) o[k] = diff[k] * coef;
+  for (int k = 0; k < D; ++k) __stcs(o + k, on ? diff[k] * coef : 0.f);
 }
 
 template <int D>
-void launch(int n_edges, int ec, int blk, int b_max, const int* cs,
-            const int* cr, const float* cw, const float* mask,
-            const float* block, const float* x, const float* deg_p1,
-            const FaParams& p, float* out, cudaStream_t stream) {
-  const int grid = (n_edges + BLOCK - 1) / BLOCK;
+void launch(int ndev, int ec, int blk, int b_max, const int* live,
+            const int* cs, const int* cr, const float* cw, const float* block,
+            const float* x, const float* deg_p1, const FaParams& p,
+            float* out, cudaStream_t stream) {
+  const dim3 grid((ec + BLOCK - 1) / BLOCK, ndev);
   ring_slot_kernel<D><<<grid, BLOCK, 0, stream>>>(
-      n_edges, ec, blk, b_max, cs, cr, cw, mask, block, x, deg_p1, p, out);
+      ec, blk, b_max, live, cs, cr, cw, block, x, deg_p1, p, out);
 }
 
 }  // namespace
 
-// One ring slot: ``n_edges`` = shards * ec group entries (shard-major, ec
-// per shard); ``block`` the slot's [shards, b_max, d] boundary rows; ``x``
-// the stacked [shards * blk, d] coordinates; ``deg_p1`` [shards * blk].
-// Returns cudaGetLastError() after the launch.  The caller guarantees
-// n_edges > 0, 1 <= d <= 4 and every live cr < b_max.
-extern "C" int ge_ring_attraction(int n_edges, int ec, int d, int blk,
-                                  int b_max, const void* cs, const void* cr,
-                                  const void* cw, const void* mask,
-                                  const void* block, const void* x,
-                                  const void* deg_p1, float attract,
-                                  float eps, float delta, int linlog,
-                                  int nohubs, int use_weights, void* out,
-                                  void* stream) {
+// One ring slot: ``ndev`` groups of ``ec`` entries (shard-major);
+// ``live`` the [ndev] live counts of the groups (the entries before a
+// group's count have mask 1, those past it are padding: zeros, not read);
+// ``block`` the slot's [ndev, b_max, d] boundary rows; ``x`` the stacked
+// [ndev * blk, d] coordinates; ``deg_p1`` [ndev * blk].  Returns
+// cudaGetLastError() after the launch.  The caller guarantees ndev > 0,
+// ec > 0, ndev * ec < 2^31, 1 <= d <= 4, every count in [0, ec] and every
+// live cr < b_max.
+extern "C" int ge_ring_attraction(int ndev, int ec, int d, int blk,
+                                  int b_max, const void* live, const void* cs,
+                                  const void* cr, const void* cw,
+                                  const void* block,
+                                  const void* x, const void* deg_p1,
+                                  float attract, float eps, float delta,
+                                  int linlog, int nohubs, int use_weights,
+                                  void* out, void* stream) {
+  const int* lv = static_cast<const int*>(live);
   const int* csi = static_cast<const int*>(cs);
   const int* cri = static_cast<const int*>(cr);
   const float* cwf = static_cast<const float*>(cw);
-  const float* mf = static_cast<const float*>(mask);
   const float* bf = static_cast<const float*>(block);
   const float* xf = static_cast<const float*>(x);
   const float* df = static_cast<const float*>(deg_p1);
@@ -134,11 +160,14 @@ extern "C" int ge_ring_attraction(int n_edges, int ec, int d, int blk,
   const FaParams p{attract, eps, delta, linlog, nohubs, use_weights};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 1: launch<1>(n_edges, ec, blk, b_max, csi, cri, cwf, mf, bf, xf, df, p, of, s); break;
-    case 2: launch<2>(n_edges, ec, blk, b_max, csi, cri, cwf, mf, bf, xf, df, p, of, s); break;
-    case 3: launch<3>(n_edges, ec, blk, b_max, csi, cri, cwf, mf, bf, xf, df, p, of, s); break;
-    case 4: launch<4>(n_edges, ec, blk, b_max, csi, cri, cwf, mf, bf, xf, df, p, of, s); break;
+    case 1: launch<1>(ndev, ec, blk, b_max, lv, csi, cri, cwf, bf, xf, df, p, of, s); break;
+    case 2: launch<2>(ndev, ec, blk, b_max, lv, csi, cri, cwf, bf, xf, df, p, of, s); break;
+    case 3: launch<3>(ndev, ec, blk, b_max, lv, csi, cri, cwf, bf, xf, df, p, of, s); break;
+    case 4: launch<4>(ndev, ec, blk, b_max, lv, csi, cri, cwf, bf, xf, df, p, of, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+// Marks the entry point that takes the groups' live counts.
+extern "C" int ge_ring_live_counts() { return 1; }

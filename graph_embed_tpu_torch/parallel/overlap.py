@@ -29,9 +29,13 @@ receive from a block while the next block is in flight.
   runs the copies in order.
 * Kernel F computes one slot for every shard at once: per cross edge the
   attraction of forces.attraction_fa (``slot_forces_cuda``); its plain
-  version ``slot_forces_plain``.  The per-edge forces ``[slot, shard,
-  ec_max, d]`` are summed per sender outside, over every slot in slot
-  order, by the row-owned segment sum (``RingGroups.csr``).
+  version ``slot_forces_plain``.  Each group's live entries are a prefix
+  with mask 1 (``RingGroups.live`` counts them): the kernel reads nothing
+  past it and no mask.  The per-edge forces ``[slot, shard, ec_max, d]``
+  are summed per sender outside, over every slot in slot order, by the
+  row-owned segment sum (``RingGroups.csr``).  A ring checks its operands
+  once and launches its slots unchecked (``ring_slot_forces``,
+  ``ring_cross_forces``).
 
 ``ring_cross_forces`` launches kernel F for a CUDA tensor and raises for
 what it does not take; ``ring_cross_forces_plain`` runs only where the
@@ -128,17 +132,21 @@ def build_overlap_groups(plan) -> OverlapGroups:
 class RingGroups:
     """The groups on the device, slot-major, and what the ring needs.
 
-    cs/cr: [slot, shard, ec] int32; cw/mask: [slot, shard, ec] float32;
-    bidx: [ndev * B_max] int64 rows of the stacked coordinates that each
-    shard exports (slot 0 of the ring); csr: the live entries of the
-    per-edge output ``[slot, shard, ec, d]`` (flattened, slot-major) by
-    global sender row, the order in which the cross forces are summed;
-    side: the CUDA stream of the ring's forwards (None on the CPU)."""
+    cs/cr: [slot, shard, ec] int32; cw/mask: [slot, shard, ec] float32
+    (kernel F reads no mask; the plain version does); live: [slot, shard]
+    int32, the live entries of each group, a prefix of it with mask 1 (the
+    rest is padding, mask 0); bidx: [ndev * B_max]
+    int64 rows of the stacked coordinates that each shard exports (slot 0
+    of the ring); csr: the live entries of the per-edge output ``[slot,
+    shard, ec, d]`` (flattened, slot-major) by global sender row, the
+    order in which the cross forces are summed; side: the CUDA stream of
+    the ring's forwards (None on the CPU)."""
 
     cs: torch.Tensor
     cr: torch.Tensor
     cw: torch.Tensor
     mask: torch.Tensor
+    live: torch.Tensor
     bidx: torch.Tensor
     csr: ES.EdgeCSR
     ndev: int
@@ -163,6 +171,13 @@ def ring_groups(groups: OverlapGroups, plan, device) -> RingGroups:
 
     mask = np.swapaxes(groups.mask, 0, 1)            # [slot, shard, ec]
     cs = np.swapaxes(groups.cs, 0, 1)
+    counts = np.ascontiguousarray(np.count_nonzero(mask, axis=-1),
+                                  dtype=np.int32)
+    # kernel F reads neither the padding nor the mask of a live entry
+    if not np.array_equal(mask, np.arange(groups.ec_max)
+                          < counts[..., None]):
+        raise ValueError("every ring group's live entries must be a prefix "
+                         "of it, with mask 1")
     live = (mask > 0) & (cs < blk)
     flat = np.flatnonzero(live)
     shard = (flat // groups.ec_max) % ndev
@@ -174,6 +189,7 @@ def ring_groups(groups: OverlapGroups, plan, device) -> RingGroups:
                       cr=slot_major(groups.cr, np.int32),
                       cw=slot_major(groups.cw, np.float32),
                       mask=slot_major(groups.mask, np.float32),
+                      live=torch.from_numpy(counts).to(device),
                       bidx=torch.from_numpy(plan.export_rows()).to(device),
                       csr=csr,
                       ndev=ndev, blk=blk, b_max=plan.B_max,
@@ -210,50 +226,132 @@ def slot_forces_plain(block, x, deg_p1, cs, cr, cw, mask, *, blk: int,
     return torch.where(live[..., None], out, torch.zeros_like(out))
 
 
-def slot_forces_cuda(block, x, deg_p1, cs, cr, cw, mask, *, blk: int,
-                     params: ForceAtlasParams,
-                     out: torch.Tensor | None = None) -> torch.Tensor:
-    """Kernel F on the card: one ring slot, every shard; writes ``out``
-    ([shard, ec, d] float32, allocated if None) and returns it."""
-    ndev, ec = cs.shape
+def _launch_slot(ptrs, *, ndev: int, ec: int, d: int, blk: int, b_max: int,
+                 fa: tuple, stream: int) -> None:
+    """Kernel F on one slot, unchecked: ``ptrs`` are the device addresses
+    (live counts, cs, cr, cw, block, x, deg + 1, out); ``fa`` the
+    attraction parameters in the entry point's order."""
+    rc = cuda.library().ge_ring_attraction(ndev, ec, d, blk, b_max, *ptrs[:7],
+                                           *fa, ptrs[7], stream)
+    cuda.check(rc, "ring_attraction")
+    cuda.LAUNCHES["ring_attraction"] += 1
+
+
+def _fa_args(params: ForceAtlasParams) -> tuple:
+    return (float(params.attract), float(params.epsilon), float(params.delta),
+            int(params.linlog), int(params.nohubs), int(params.use_weights))
+
+
+def _check_operands(block, x, deg_p1, groups, live, out, *, lead: tuple,
+                    ndev: int, ec: int, blk: int) -> None:
+    """What kernel F takes: ``block`` [*lead, ndev, B_max, d], ``groups``
+    (cs, cr: int32; cw: float32) [*lead, ndev, ec], ``live`` int32
+    [*lead, ndev] and ``out`` float32 [*lead, ndev, ec, d], all contiguous
+    on x's CUDA device."""
     d = x.shape[1] if x.dim() == 2 else 0
     dev = x.device
-    if not x.is_cuda or any(t.device != dev for t in
-                            (block, deg_p1, cs, cr, cw, mask)):
+    if not x.is_cuda or any(t.device != dev for t in (block, deg_p1, live,
+                                                       out, *groups)):
         raise ValueError("kernel F needs every operand on one CUDA device")
     if not 1 <= d <= 4 or x.dtype != torch.float32 or not x.is_contiguous() \
             or x.shape[0] % blk:
         raise ValueError(f"kernel F takes contiguous float32 [shards * "
                          f"{blk}, d<=4] coordinates, got {x.dtype} "
                          f"{tuple(x.shape)}")
-    if block.dim() != 3 or tuple(block.shape[::2]) != (ndev, d) \
-            or block.dtype != torch.float32 or not block.is_contiguous():
+    if block.dim() != len(lead) + 3 \
+            or tuple(block.shape[:-2]) != (*lead, ndev) \
+            or block.shape[-1] != d or block.dtype != torch.float32 \
+            or not block.is_contiguous():
         raise ValueError(f"kernel F takes a contiguous float32 [{ndev}, "
                          f"B_max, {d}] slot block, got {tuple(block.shape)}")
-    for t, dt in ((cs, torch.int32), (cr, torch.int32), (cw, torch.float32),
-                  (mask, torch.float32)):
-        if t.dtype != dt or tuple(t.shape) != (ndev, ec) \
+    for t, dt in zip(groups, (torch.int32, torch.int32, torch.float32)):
+        if t.dtype != dt or tuple(t.shape) != (*lead, ndev, ec) \
                 or not t.is_contiguous():
             raise ValueError(f"kernel F's groups are contiguous [{ndev}, "
-                             f"{ec}] int32 cs/cr and float32 cw/mask")
+                             f"{ec}] int32 cs/cr and float32 cw")
+    if live.dtype != torch.int32 or tuple(live.shape) != (*lead, ndev) \
+            or not live.is_contiguous():
+        raise ValueError(f"kernel F takes contiguous int32 [{ndev}] live "
+                         f"counts per slot, got {live.dtype} "
+                         f"{tuple(live.shape)}")
+    if out.dtype != torch.float32 or tuple(out.shape) != (*lead, ndev, ec, d) \
+            or not out.is_contiguous():
+        raise ValueError(f"kernel F writes a contiguous float32 [{ndev}, "
+                         f"{ec}, {d}] output per slot, got {out.dtype} "
+                         f"{tuple(out.shape)}")
     if deg_p1.dtype != torch.float32 or tuple(deg_p1.shape) != (x.shape[0],):
         raise ValueError("deg + 1 must be float32 [shards * blk]")
     if x.shape[0] != ndev * blk or ndev * ec >= 1 << 31:
         raise ValueError("kernel F indexes shards * ec with int32")
+
+
+def slot_forces_cuda(block, x, deg_p1, cs, cr, cw, live, *, blk: int,
+                     params: ForceAtlasParams,
+                     out: torch.Tensor | None = None) -> torch.Tensor:
+    """Kernel F on the card: one ring slot, every shard; ``live`` [shard]
+    int32 counts each group's live entries, a prefix of it with mask 1
+    (``RingGroups.live``), and the rest is written as zeros.  Writes
+    ``out`` ([shard, ec, d] float32, allocated if None) and returns it."""
+    ndev, ec = cs.shape
     if out is None:
-        out = torch.empty((ndev, ec, d), dtype=torch.float32, device=dev)
+        out = torch.empty((ndev, ec, x.shape[-1]), dtype=torch.float32,
+                          device=x.device)
+    _check_operands(block, x, deg_p1, (cs, cr, cw), live, out, lead=(),
+                    ndev=ndev, ec=ec, blk=blk)
     if ndev * ec == 0:
         return out
-    with torch.cuda.device(dev):
-        rc = cuda.library().ge_ring_attraction(
-            ndev * ec, ec, d, blk, block.shape[1], cs.data_ptr(),
-            cr.data_ptr(), cw.data_ptr(), mask.data_ptr(), block.data_ptr(),
-            x.data_ptr(), deg_p1.data_ptr(), float(params.attract),
-            float(params.epsilon), float(params.delta), int(params.linlog),
-            int(params.nohubs), int(params.use_weights), out.data_ptr(),
-            cuda.stream_of(x))
-    cuda.check(rc, "ring_attraction")
-    cuda.LAUNCHES["ring_attraction"] += 1
+    with torch.cuda.device(x.device):
+        _launch_slot([t.data_ptr() for t in (
+            live, cs, cr, cw, block, x, deg_p1, out)],
+                     ndev=ndev, ec=ec, d=x.shape[1], blk=blk,
+                     b_max=block.shape[1], fa=_fa_args(params),
+                     stream=cuda.stream_of(x))
+    return out
+
+
+def _ring_launcher(x, deg_p1, ring: RingGroups, params: ForceAtlasParams,
+                   buf: torch.Tensor, out: torch.Tensor):
+    """Check kernel F's operands for every slot of ``ring`` once; returns
+    ``launch(k)``, which runs slot k of ``buf`` [slot, shard, B_max, d] into
+    ``out[k]`` ([slot, shard, ec, d]) unchecked."""
+    ndev, ec, d = ring.ndev, ring.ec, x.shape[1]
+    _check_operands(buf, x, deg_p1, (ring.cs, ring.cr, ring.cw), ring.live,
+                    out, lead=(ndev,), ndev=ndev, ec=ec, blk=ring.blk)
+    if buf.shape[-2] != ring.b_max:
+        raise ValueError(f"kernel F's ring takes a [slot, shard, "
+                         f"{ring.b_max}, d] slot buffer, got "
+                         f"{tuple(buf.shape)}")
+    kw = dict(ndev=ndev, ec=ec, d=d, blk=ring.blk, b_max=ring.b_max,
+              fa=_fa_args(params), stream=cuda.stream_of(x))
+    fixed = (x.data_ptr(), deg_p1.data_ptr())
+    live, cs, cr, cw, b, o = (t.data_ptr() for t in (
+        ring.live, ring.cs, ring.cr, ring.cw, buf, out))
+    group, slot_in = 4 * ndev * ec, 4 * ndev * ring.b_max * d
+    slot_out = group * d
+
+    def launch(k: int) -> None:
+        g = k * group
+        _launch_slot((live + 4 * ndev * k, cs + g, cr + g, cw + g,
+                      b + k * slot_in, *fixed, o + k * slot_out), **kw)
+
+    return launch
+
+
+def ring_slot_forces(buf, x, deg_p1, ring: RingGroups,
+                     params: ForceAtlasParams,
+                     out: torch.Tensor | None = None,
+                     slots=None) -> torch.Tensor:
+    """Kernel F on the slots ``slots`` (default all) of a filled slot
+    buffer ``buf`` [slot, shard, B_max, d], the operands checked once;
+    writes them into ``out`` [slot, shard, ec, d] (allocated if None) and
+    returns it."""
+    if out is None:
+        out = torch.empty((ring.ndev, ring.ndev, ring.ec, x.shape[1]),
+                          dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        launch = _ring_launcher(x, deg_p1, ring, params, buf, out)
+        for k in range(ring.ndev) if slots is None else slots:
+            launch(k)
     return out
 
 
@@ -265,22 +363,16 @@ def _forward(buf: torch.Tensor, k: int) -> None:
 
 def _ring(x, deg_p1, ring: RingGroups, params, slot_fn, side) -> torch.Tensor:
     """The ring: slot 0 gathers each shard's boundary rows; slot k is
-    forwarded while ``slot_fn`` computes it.  ``side`` is the CUDA stream of
-    the forwards, or None to run everything in order."""
+    forwarded while ``slot_fn(buf, out)(k)`` computes it into ``out[k]``.
+    ``side`` is the CUDA stream of the forwards, or None to run everything
+    in order."""
     ndev, d = ring.ndev, x.shape[1]
     buf = torch.empty((ndev, ndev, ring.b_max, d), dtype=x.dtype,
                       device=x.device)
     out = torch.empty((ndev, ndev, ring.ec, d), dtype=x.dtype,
                       device=x.device)
     torch.index_select(x, 0, ring.bidx, out=buf[0].view(-1, d))
-
-    def compute(k):
-        args = (buf[k], x, deg_p1, ring.cs[k], ring.cr[k], ring.cw[k],
-                ring.mask[k])
-        if side is None:
-            out[k] = slot_fn(*args, blk=ring.blk, params=params)
-        else:
-            slot_fn(*args, blk=ring.blk, params=params, out=out[k])
+    compute = slot_fn(x, deg_p1, ring, params, buf, out)
 
     if side is None:
         for k in range(ndev):
@@ -305,11 +397,20 @@ def _ring(x, deg_p1, ring: RingGroups, params, slot_fn, side) -> torch.Tensor:
     return out
 
 
+def _plain_slots(x, deg_p1, ring: RingGroups, params, buf, out):
+    def compute(k: int) -> None:
+        out[k] = slot_forces_plain(buf[k], x, deg_p1, ring.cs[k], ring.cr[k],
+                                   ring.cw[k], ring.mask[k], blk=ring.blk,
+                                   params=params)
+
+    return compute
+
+
 def ring_cross_forces_plain(x, deg_p1, ring: RingGroups,
                             params: ForceAtlasParams) -> torch.Tensor:
     """Plain version of the whole ring: the same transport, the copies in
     order, and ``slot_forces_plain`` per slot.  [slot, shard, ec, d]."""
-    return _ring(x, deg_p1, ring, params, slot_forces_plain, None)
+    return _ring(x, deg_p1, ring, params, _plain_slots, None)
 
 
 def ring_cross_forces(x, deg_p1, ring: RingGroups,
@@ -321,7 +422,8 @@ def ring_cross_forces(x, deg_p1, ring: RingGroups,
         if ring.side is None or ring.side.device != x.device:
             raise ValueError("the ring's groups live on another device than "
                              "the coordinates")
-        return _ring(x, deg_p1, ring, params, slot_forces_cuda, ring.side)
+        with torch.cuda.device(x.device):
+            return _ring(x, deg_p1, ring, params, _ring_launcher, ring.side)
     if x.device.type != "cpu":
         raise ValueError(f"ring_cross_forces runs on CUDA or the CPU, not "
                          f"{x.device}")

@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
-"""Kernels A, B, D and E of two builds of ``graph_embed_tpu_torch/csrc`` on
-one CUDA card, on the same inputs: this checkout's and another checkout's.
+"""Kernels A to F of two builds of ``graph_embed_tpu_torch/csrc`` on one
+CUDA card, on the same inputs: this checkout's and another checkout's.
 
-    python3 scripts/torch_kernel_ab.py --other DIR [--only A,B,D,E,flat]
+    python3 scripts/torch_kernel_ab.py --other DIR [--only A,B,C,D,E,F,flat]
 
 DIR is the root of another checkout (a ``git archive`` of an earlier
-commit, say).  Its ``graph_embed_tpu_torch/csrc`` is built with nvcc into a
+commit, say; ``--other`` may repeat, and each DIR is then compared with
+this checkout in turn, after a ``{"phase": "other"}`` line that names it).
+Its ``graph_embed_tpu_torch/csrc`` is built with nvcc into a
 temporary directory outside both checkouts and loaded beside this
 checkout's library.  Its entry points may predate this checkout's: kernel
-A's and E's without the hub list take no plan, and a kernel B whose
+A's and E's without the hub list take no plan, a kernel B whose
 ``ge_bucket_tile()`` is 256 takes the table of one row per 256 slots
-(cta start, S, bucket base, bucket end), built here for it.  At the shapes
+(cta start, S, bucket base, bucket end), built here for it, and a kernel F
+without ``ge_ring_live_counts`` takes no live counts.  At the shapes
 ``chip_smoke.py`` gives each kernel it reports, one JSON line per
 measurement:
 
@@ -21,13 +24,22 @@ measurement:
             exact (community tiered nohubs), stream-only (community,
             rmat(20, 8)); kernel B (the level-0 and first Galerkin slot
             layouts of mesh3d(128), whole and one size class at a time);
+            kernel C (rmat(20, 8) under linlog at 7, 64 and 300 samples);
             kernel D (mesh3d(128), rmat(20, 8), community f32; at 64
             samples and at one, the sample loop all but removed); kernel E
-            (the linlog CSRs of rmat(20, 8) and of the community graph):
+            (the linlog CSRs of rmat(20, 8) and of the community graph);
+            kernel F (the halo rings of the community graph and the
+            partition-ordered rmat(20, 8) at 8 shards: the eight slots'
+            launches over a filled slot buffer, the whole ring with its
+            forwards, then each slot's launch alone, with its live and
+            padding entries):
             whether the two outputs are torch.equal, else the largest
             difference over the element's sum of |terms|; both builds'
             times on the card alone and the host's enqueue times
             (chip_smoke.device_ms), in the order other, this, this, other;
+  halo_step with section F, the halo steps of its two rings, overlap and
+            collective, in ms per iteration with either build's kernels
+            (chip_smoke.halo_step_ms; the same order);
   flat      the flat step's ms per iteration on chip_smoke.py's nine plans
             with either build's kernels (median of 5 CUDA-event timings of
             20 iterations each; the same order).
@@ -37,6 +49,7 @@ measurement:
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import ctypes
 import dataclasses
@@ -56,10 +69,11 @@ import chip_smoke as CS  # noqa: E402
 
 def entry_points(lib) -> dict:
     """What a library's entry points take: kernel A's and E's hub lists,
-    kernel B's slots per table row."""
+    kernel B's slots per table row, kernel F's live counts."""
     return dict(hubs=hasattr(lib, "ge_spmv_hub_row"),
                 linlog_hubs=hasattr(lib, "ge_linlog_stage_floats"),
-                bucket_tile=lib.ge_bucket_tile())
+                bucket_tile=lib.ge_bucket_tile(),
+                ring_live=hasattr(lib, "ge_ring_live_counts"))
 
 
 def build_other(root: str, work: str):
@@ -93,7 +107,42 @@ def build_other(root: str, work: str):
         lib.ge_edge_linlog.argtypes = [i, i, p, p, p, p, p, f, f, p]
     if takes["bucket_tile"] == 256:
         lib.ge_bucket_repulsion.argtypes = [i, i, p, p, p, p, f, f, p]
+    if not takes["ring_live"]:
+        lib.ge_ring_attraction.argtypes = [i, i, i, i, i, p, p, p, p, p, p,
+                                           p, f, f, f, i, i, i, p, p]
     return lib, takes
+
+
+def _ring_liveless(lib):
+    """Kernel F's ring launcher (``overlap._ring_launcher``) for a library
+    whose entry point takes the slot's entry count (shards * ec) and every
+    entry's mask, not live counts.  It runs this checkout's checks, so that
+    both builds' host enqueue times include them."""
+    from graph_embed_tpu_torch.ops import cuda
+    from graph_embed_tpu_torch.parallel import overlap as OV
+
+    def ring_launcher(x, deg_p1, ring, params, buf, out):
+        ndev, ec, d = ring.ndev, ring.ec, x.shape[1]
+        OV._check_operands(buf, x, deg_p1, (ring.cs, ring.cr, ring.cw),
+                           ring.live, out, lead=(ndev,), ndev=ndev, ec=ec,
+                           blk=ring.blk)
+        fa, stream = OV._fa_args(params), cuda.stream_of(x)
+        cs, cr, cw, mask, b, xp, dp, o = (t.data_ptr() for t in (
+            ring.cs, ring.cr, ring.cw, ring.mask, buf, x, deg_p1, out))
+        group, slot_in = 4 * ndev * ec, 4 * ndev * ring.b_max * d
+
+        def launch(k: int) -> None:
+            g = k * group
+            rc = lib.ge_ring_attraction(
+                ndev * ec, ec, d, ring.blk, ring.b_max, cs + g, cr + g,
+                cw + g, mask + g, b + k * slot_in, xp, dp, *fa,
+                o + k * group * d, stream)
+            cuda.check(rc, "ring_attraction")
+            cuda.LAUNCHES["ring_attraction"] += 1
+
+        return launch
+
+    return ring_launcher
 
 
 def _linlog_planless(lib):
@@ -199,6 +248,7 @@ def use(lib, takes: dict):
     from graph_embed_tpu_torch.forceatlas import multilevel_tiled as MT
     from graph_embed_tpu_torch.ops import cuda
     from graph_embed_tpu_torch.ops import edge_spmm as ES
+    from graph_embed_tpu_torch.parallel import overlap as OV
 
     patches = []
     if not takes["hubs"]:
@@ -208,6 +258,8 @@ def use(lib, takes: dict):
         patches.append((ES, "linlog_cuda", _linlog_planless(lib)))
     if takes["bucket_tile"] == 256 != cuda.BUCKET_TILE:
         patches.append((MT, "exact_repulsion_cuda", _bucket_256(lib)))
+    if not takes["ring_live"]:
+        patches.append((OV, "_ring_launcher", _ring_liveless(lib)))
     saved_lib = cuda._LIB
     saved = [(mod, n, getattr(mod, n)) for mod, n, _ in patches]
     cuda._LIB = lib
@@ -283,7 +335,7 @@ def spmv_cases(torch, dev, g, res, flat, lj):
     return out
 
 
-SECTIONS = ("A", "B", "D", "E", "flat")
+SECTIONS = ("A", "B", "C", "D", "E", "F", "flat")
 
 
 def section_a(torch, dev, g, res, flat, lj, this, other) -> None:
@@ -337,6 +389,91 @@ def section_b(torch, dev, g, res, this, other) -> None:
                     select=lambda out, mine=mine: torch.cat(
                         [out[b.slots] for b in mine]),
                     table_rows=int(lay.exact_meta.shape[0]), **counts)
+
+
+def section_c(torch, dev, flat, this, other) -> None:
+    """Kernel C on the rmat graph's linlog plan at chip_smoke's sample
+    counts."""
+    from graph_embed_tpu_torch.ops import repulsion as RP
+
+    g, tfa, _ = flat["rmat(20,8) linlog"]
+    params = CS.flat_params(linlog=True)
+    kw = dict(repel=params.repel, eps=params.epsilon)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.rand((g.n, 3), generator=gen, device=dev) * 2 - 1
+    for s in CS.C_SAMPLES:
+        idx = RP.draw_samples(g.n, s, gen, dev)
+        scale = [RP.repulsion_sampled_plain(x, tfa.deg_p1, idx,
+                                            absolute=True, **kw)]
+        compare("sampled_repulsion", "rmat(20,8)",
+                lambda idx=idx: RP.repulsion_sampled_cuda(
+                    x, tfa.deg_p1, idx, **kw), scale, this, other, n=g.n,
+                samples=s)
+
+
+def ring_cases(torch, dev, graphs) -> list:
+    """Kernel F's inputs on the halo rings of chip_smoke's halo phase (8
+    shards): (shape, plan, ring, deg + 1, x, filled slot buffer, the plain
+    per-edge forces, (overlap step, collective step))."""
+    from graph_embed_tpu_torch.parallel import overlap as OV
+
+    params = CS.flat_params()
+    gen = torch.Generator(device=dev).manual_seed(11)
+    cases = []
+    for shape, g in zip(("community", "rmat(20,8) ordered"), graphs):
+        plan, ov, col, _ = CS.halo_steps(torch, g, dev)
+        x = torch.zeros((plan.ndev * plan.blk, 3), device=dev)
+        x[: g.n] = torch.rand((g.n, 3), generator=gen, device=dev) * 2 - 1
+        cases.append((shape, plan, ov.ring, ov.deg_p1, x,
+                      CS.filled_slots(torch, x, plan, ov.ring),
+                      OV.ring_cross_forces_plain(x, ov.deg_p1, ov.ring,
+                                                 params), (ov, col)))
+    return cases
+
+
+def section_f(torch, cases, this, other) -> None:
+    """Kernel F on ``ring_cases``: its eight launches over the filled slot
+    buffer (the operands checked once), the whole ring with its forwards,
+    each slot alone, then the halo steps' ms per iteration."""
+    from graph_embed_tpu_torch.parallel import overlap as OV
+
+    params = CS.flat_params()
+    for shape, plan, ring, deg_p1, x, buf, want, steps in cases:
+        live = ring.live.sum(dim=1).tolist()
+        compare("ring_attraction", shape,
+                lambda buf=buf, x=x, deg_p1=deg_p1, ring=ring:
+                OV.ring_slot_forces(buf, x, deg_p1, ring, params),
+                [want.abs()], this, other, slot="all",
+                entries=ring.cs.numel(), live=ring.live_edges,
+                **CS.ring_bound(ring, plan, params))
+        # the whole ring: the gather, the forwards on the side stream (each
+        # slot's block written just before kernel F reads it) and F
+        compare("ring_attraction", shape,
+                lambda x=x, deg_p1=deg_p1, ring=ring:
+                OV.ring_cross_forces(x, deg_p1, ring, params),
+                [want.abs()], this, other, slot="ring")
+        for k in range(plan.ndev):
+            compare("ring_attraction", shape,
+                    lambda buf=buf, x=x, deg_p1=deg_p1, ring=ring, k=k:
+                    OV.ring_slot_forces(buf, x, deg_p1, ring, params,
+                                        slots=(k,)),
+                    [want[k].abs()], this, other,
+                    select=lambda out, k=k: out[k], slot=k, live=live[k],
+                    padding=plan.ndev * ring.ec - live[k])
+        # the halo steps with each build's kernels, by events as
+        # chip_smoke's halo phase times them; the collective step runs no
+        # kernel F, so its two builds' times show the spread
+        gen = torch.Generator(device=x.device).manual_seed(5)
+        for label, step in zip(("overlap", "collective"), steps):
+            runs = {"this": [], "other": []}
+            for build in ("other", "this", "this", "other"):
+                with use(*(other if build == "other" else this)):
+                    runs[build].append(CS.halo_step_ms(
+                        torch, step, x, lambda step=step: step.draw(gen)))
+            CS.emit(phase="halo_step", shape=shape, step=label,
+                    this_ms_per_iteration=statistics.fmean(runs["this"]),
+                    other_ms_per_iteration=statistics.fmean(runs["other"]),
+                    runs=runs)
 
 
 def section_d(torch, dev, flat, lj, this, other) -> None:
@@ -421,8 +558,9 @@ def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--other", required=True,
-                    help="root of the other checkout")
+    ap.add_argument("--other", required=True, action="append",
+                    help="root of the other checkout (repeat for several: "
+                    "each is compared with this one in turn)")
     ap.add_argument("--only", default=",".join(SECTIONS),
                     help="comma-separated sections of " + ",".join(SECTIONS))
     args = ap.parse_args()
@@ -441,25 +579,47 @@ def main() -> int:
     work = tempfile.mkdtemp(prefix="kernel_ab_")
     try:
         this = (cuda.library(), entry_points(cuda.library()))
-        other = build_other(os.path.abspath(args.other), work)
-        CS.emit(phase="build", other=args.other, other_takes=other[1],
-                this_takes=this[1])
+        dirs = [os.path.join(work, str(i)) for i in range(len(args.other))]
+        for d in dirs:
+            os.makedirs(d)
+        with concurrent.futures.ThreadPoolExecutor(len(dirs)) as pool:
+            others = list(pool.map(build_other, [os.path.abspath(o) for o
+                                                 in args.other], dirs))
+        for path, other in zip(args.other, others):
+            CS.emit(phase="build", other=path, other_takes=other[1],
+                    this_takes=this[1])
 
-        g = synth.mesh3d(CS.MESH_SIDE)
-        res = gp.partition_hierarchy(g, 0.1, emit_graphs=True)
-        if only - {"B"}:
+        # build only what the sections take
+        g = res = flat = lj = graphs = rings = None
+        if only & {"A", "B", "D", "flat"}:
+            g = synth.mesh3d(CS.MESH_SIDE)
+        if only & {"A", "B"}:
+            res = gp.partition_hierarchy(g, 0.1, emit_graphs=True)
+        if only & {"A", "C", "D", "E", "flat"}:
             flat = CS.setup_flat(dev, g)
-            lj = CS.setup_lj(dev)
-        if "A" in only:
-            section_a(torch, dev, g, res, flat, lj, this, other)
-        if "B" in only:
-            section_b(torch, dev, g, res, this, other)
-        if "D" in only:
-            section_d(torch, dev, flat, lj, this, other)
-        if "E" in only:
-            section_e(torch, dev, flat, lj, this, other)
-        if "flat" in only:
-            section_flat(torch, dev, flat, lj, this, other)
+        if only & {"A", "D", "E", "F", "flat"}:
+            graphs = CS.lj_graphs(dev)
+        if only & {"A", "D", "E", "flat"}:
+            lj = CS.setup_lj(dev, graphs)
+        if "F" in only:
+            rings = ring_cases(torch, dev, graphs)
+        for path, other in zip(args.other, others):
+            # the lines that follow compare this build with ``path``'s
+            CS.emit(phase="other", other=path)
+            if "A" in only:
+                section_a(torch, dev, g, res, flat, lj, this, other)
+            if "B" in only:
+                section_b(torch, dev, g, res, this, other)
+            if "C" in only:
+                section_c(torch, dev, flat, this, other)
+            if "D" in only:
+                section_d(torch, dev, flat, lj, this, other)
+            if "E" in only:
+                section_e(torch, dev, flat, lj, this, other)
+            if "F" in only:
+                section_f(torch, rings, this, other)
+            if "flat" in only:
+                section_flat(torch, dev, flat, lj, this, other)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return 0

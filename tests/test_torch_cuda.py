@@ -1,4 +1,4 @@
-"""Kernels A to E against their plain PyTorch versions on a CUDA card,
+"""Kernels A to F against their plain PyTorch versions on a CUDA card,
 and the bitwise repeatability of whole runs there.
 
 Every test here needs the card and skips elsewhere.  The file imports
@@ -217,6 +217,37 @@ def test_kernel_c_matches_plain(rng, dev, s):
     deg_p1 = torch.from_numpy(rng.uniform(1, 9, n).astype(np.float32)).to(
         dev)
     idx = torch.from_numpy(rng.integers(0, n, s).astype(np.int32)).to(dev)
+    before = cuda.LAUNCHES["sampled_repulsion"]
+    got = RP.repulsion_sampled(x, deg_p1, idx, repel=REPEL, eps=EPS)
+    assert cuda.LAUNCHES["sampled_repulsion"] == before + 1
+    want = RP.repulsion_sampled_plain(x, deg_p1, idx, repel=REPEL, eps=EPS)
+    scale = RP.repulsion_sampled_plain(x, deg_p1, idx, repel=REPEL, eps=EPS,
+                                       absolute=True)
+    torch.cuda.synchronize()
+    _assert_within_scale(got, want, scale)
+    assert torch.equal(RP.repulsion_sampled(x, deg_p1, idx, repel=REPEL,
+                                            eps=EPS), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [7, 256, 300, 513])
+@pytest.mark.parametrize("d", [1, 2, 3, 4])
+@pytest.mark.parametrize("n", [3, 4097])
+def test_kernel_c_tails_and_self_pairs(rng, dev, n, d, s):
+    """Kernel C's 4 vertices per thread: n = 3 (one partial group) and
+    4097 (one vertex past four 1024-vertex tiles), d = 1-4, s below, at
+    and above one 256-sample staging pass; the samples hold vertices at
+    each of a thread's four positions (8, 13, 18, 23; all three at n = 3)
+    and the last vertex.  Each element within 1e-5 of its own sum of
+    |terms|, bitwise repeatable."""
+    x = torch.from_numpy(rng.uniform(-1, 1, (n, d)).astype(np.float32)).to(
+        dev)
+    deg_p1 = torch.from_numpy(rng.uniform(1, 9, n).astype(np.float32)).to(
+        dev)
+    ids = rng.integers(0, n, s)
+    own = np.arange(n) if n < 4 else np.array([8, 13, 18, 23, n - 1])
+    ids[: own.size] = own
+    idx = torch.from_numpy(ids.astype(np.int32)).to(dev)
     before = cuda.LAUNCHES["sampled_repulsion"]
     got = RP.repulsion_sampled(x, deg_p1, idx, repel=REPEL, eps=EPS)
     assert cuda.LAUNCHES["sampled_repulsion"] == before + 1
@@ -481,9 +512,9 @@ def test_bf16_flat_runs_are_bitwise_repeatable(dev):
     assert torch.equal(runs[0], runs[1])
 
 
-def _ring_case(rng, dev, ndev, n, weighted=True, avg_deg=6):
+def _ring_case(rng, dev, ndev, n, weighted=True, avg_deg=6, d=3):
     """A random graph's halo plan (B_max rounded to 128) and its ring
-    groups on ``dev``, with random stacked coordinates."""
+    groups on ``dev``, with random stacked [ndev * blk, d] coordinates."""
     from graph_embed_tpu_torch.parallel import halo as PH
     from graph_embed_tpu_torch.parallel import overlap as OV
 
@@ -494,8 +525,8 @@ def _ring_case(rng, dev, ndev, n, weighted=True, avg_deg=6):
     g = from_edges(s[keep], r[keep], w, n=n, symmetrize=True)
     plan = PH.build_halo_plan(g, ndev, boundary_multiple=128)
     ring = OV.ring_groups(OV.build_overlap_groups(plan), plan, dev)
-    x = torch.zeros((ndev * plan.blk, 3), device=dev)
-    x[:n] = torch.from_numpy(rng.uniform(-1, 1, (n, 3)).astype(
+    x = torch.zeros((ndev * plan.blk, d), device=dev)
+    x[:n] = torch.from_numpy(rng.uniform(-1, 1, (n, d)).astype(
         np.float32)).to(dev)
     deg_p1 = torch.from_numpy(plan.deg.reshape(-1).astype(
         np.float32)).to(dev) + 1.0
@@ -535,21 +566,88 @@ def test_kernel_f_matches_plain(rng, dev, ndev, n, linlog, nohubs, delta):
 
 @pytest.mark.cuda
 def test_kernel_f_refuses_what_it_does_not_take(rng, dev):
+    """The public per-slot wrapper, and a ring (checked once before its
+    unchecked launches), refuse operands of the wrong type, shape or
+    device: live counts and outputs included."""
     from graph_embed_tpu_torch.parallel import overlap as OV
 
     _, plan, ring, x, deg_p1 = _ring_case(rng, dev, 4, 400)
     params = ForceAtlasParams(repulsion="sampled")
     block = x[ring.bidx].view(4, plan.B_max, 3)
     args = [block, x, deg_p1, ring.cs[1], ring.cr[1], ring.cw[1],
-            ring.mask[1]]
+            ring.live[1]]
     OV.slot_forces_cuda(*args, blk=plan.blk, params=params)
     for i, bad in ((1, x.cpu()), (1, x.double()), (1, x[:, :2].T),
                    (3, ring.cs[1].long()), (4, ring.cr[1][:, :-1]),
                    (5, ring.cw[1].double()), (2, deg_p1[:-1]),
-                   (0, block[:, :, :2])):
+                   (0, block[:, :, :2]), (6, ring.live[1].long()),
+                   (6, ring.live[1][:-1]), (6, ring.live[1].cpu())):
         with pytest.raises(ValueError):
             OV.slot_forces_cuda(*args[:i], bad, *args[i + 1:], blk=plan.blk,
                                 params=params)
+    for out in (torch.empty((4, ring.ec, 2), device=dev),
+                torch.empty((4, ring.ec, 3), device=dev).double(),
+                torch.empty((4, 3, ring.ec), device=dev).transpose(1, 2)):
+        with pytest.raises(ValueError):
+            OV.slot_forces_cuda(*args, blk=plan.blk, params=params, out=out)
+
+    buf = torch.stack([torch.roll(block, k, 0) for k in range(4)])
+    OV.ring_slot_forces(buf, x, deg_p1, ring, params)
+    for bad in (dataclasses.replace(ring, live=ring.live.long()),
+                dataclasses.replace(ring, live=ring.live[:, :-1]),
+                dataclasses.replace(ring, live=ring.live.t()),
+                dataclasses.replace(ring, cw=ring.cw.double())):
+        before = cuda.LAUNCHES["ring_attraction"]
+        for call in (lambda: OV.ring_cross_forces(x, deg_p1, bad, params),
+                     lambda: OV.ring_slot_forces(buf, x, deg_p1, bad,
+                                                 params)):
+            with pytest.raises(ValueError):
+                call()
+        assert cuda.LAUNCHES["ring_attraction"] == before
+    for out in (torch.empty((4, 4, ring.ec, 2), device=dev),
+                torch.empty((3, 4, ring.ec, 3), device=dev),
+                torch.empty((4, 4, ring.ec, 3), device=dev).double()):
+        with pytest.raises(ValueError):
+            OV.ring_slot_forces(buf, x, deg_p1, ring, params, out=out)
+    with pytest.raises(ValueError):
+        OV.ring_slot_forces(buf[:, :, :-1].contiguous(), x, deg_p1, ring,
+                            params)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 2, 3, 4])
+def test_kernel_f_reads_only_the_live_prefixes(rng, dev, d):
+    """Kernel F with the ring's live counts, on groups whose counts end
+    inside a block of threads: within 1e-5 of the plain version,
+    torch.equal over the ring, over a filled slot buffer and through the
+    public per-slot wrapper, and unmoved when the padding past the counts
+    is overwritten with live-looking entries and the live entries' masks
+    with 0.5 (neither is read: a live prefix has mask 1 by the plan)."""
+    from graph_embed_tpu_torch.parallel import overlap as OV
+
+    _, plan, ring, x, deg_p1 = _ring_case(rng, dev, 4, 500, d=d)
+    live = ring.live.cpu().numpy()
+    assert (live[1:] % 256 != 0).all() and not live[0].any()
+    params = ForceAtlasParams(repulsion="sampled")
+    got = OV.ring_cross_forces(x, deg_p1, ring, params)
+    want = OV.ring_cross_forces_plain(x, deg_p1, ring, params)
+    torch.cuda.synchronize()
+    _assert_within_scale(got, want, want.abs())
+    buf = torch.stack([torch.roll(x[ring.bidx].view(4, plan.B_max, d), k, 0)
+                       for k in range(4)])
+    every = torch.stack([OV.slot_forces_cuda(
+        buf[k], x, deg_p1, ring.cs[k], ring.cr[k], ring.cw[k], ring.live[k],
+        blk=plan.blk, params=params) for k in range(4)])
+    assert torch.equal(OV.ring_slot_forces(buf, x, deg_p1, ring, params),
+                       got)
+    assert torch.equal(every, got)
+    pad = ring.mask == 0
+    poisoned = dataclasses.replace(
+        ring, cs=ring.cs.masked_fill(pad, 0), cr=ring.cr.masked_fill(pad, 1),
+        cw=ring.cw.masked_fill(pad, 2.0),
+        mask=torch.where(pad, 1.0, 0.5).to(torch.float32))
+    assert torch.equal(OV.ring_slot_forces(buf, x, deg_p1, poisoned, params),
+                       got)
 
 
 @pytest.mark.cuda

@@ -142,6 +142,33 @@ def test_ring_forces_plain_match_jax(rng):
     assert not got[jgroups.mask == 0].any()
 
 
+@pytest.mark.parametrize("ndev", [4, 8])
+def test_ring_live_counts_are_group_prefixes(rng, ndev):
+    """Kernel F reads only the live prefix of each (slot, shard) group and
+    not its mask: the ring's counts equal the mask sums, the prefix has
+    mask 1 and every group's padding (mask 0, ghost sender blk) is a
+    contiguous tail, slot 0 counts 0, and groups with a hole before their
+    last live entry, or a live mask other than 1, are refused."""
+    _, g = _graphs(rng, ndev * 60, weighted=True)
+    plan = PH.build_halo_plan(g, ndev, boundary_multiple=128)
+    groups = POV.build_overlap_groups(plan)
+    ring = POV.ring_groups(groups, plan, CPU)
+    mask, live = ring.mask.numpy(), ring.live.numpy()
+    assert live.dtype == np.int32 and live.shape == (ndev, ndev)
+    assert ring.live.is_contiguous()
+    np.testing.assert_array_equal(live, mask.sum(-1))
+    np.testing.assert_array_equal(
+        mask, (np.arange(ring.ec) < live[..., None]).astype(np.float32))
+    assert (ring.cs.numpy()[mask == 0] == plan.blk).all()
+    assert not live[0].any() and live.sum() == ring.live_edges > 0
+    shard, slot = np.argwhere(groups.mask.sum(-1) >= 2)[0]
+    for value in (0.0, 0.5):
+        bad = groups.mask.copy()
+        bad[shard, slot, 0] = value
+        with pytest.raises(ValueError, match="prefix"):
+            POV.ring_groups(dataclasses.replace(groups, mask=bad), plan, CPU)
+
+
 def _run_jax(gj, plan, params, c0, key, iters, **kw):
     return np.asarray(JH.halo_force_atlas(
         gj, c0.shape[1], mesh=jmesh(plan.ndev), params=params,
