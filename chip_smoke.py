@@ -42,7 +42,11 @@ Phases, one JSON line each:
   reference the port on the card against its plain versions on the CPU
             from one warm start: the embed on a small graph, and five flat
             tiled steps (fused, linlog, a tiered plan, x_precision='bf16')
-            on injected sample ids;
+            on injected sample ids; the portable refinement's ml_forces on
+            the first two levels of mesh3d(12) under gram, exact and
+            linlog (each element within RTOL of its rounding scale), five
+            force_atlas_multilevel iterations (plain and linlog) and one
+            centroids flat step;
   main      embed_graph on mesh3d(128) (2.1M vertices, 12.5M stored
             entries), dim 3, coarsening factor 0.1, the embed driver's default
             iteration counts; phase seconds, launch counts of kernels A and
@@ -59,6 +63,17 @@ Phases, one JSON line each:
   bf16 embed  embed_graph on mesh3d(128) with x_precision='bf16' in both
             params: phase seconds beside the f32 embed's, bf16x launches in
             the level-0 refine;
+  portable embed  embed on the main phase's hierarchy with
+            refine_backend='portable' (gram within-aggregate repulsion):
+            phase seconds and launches per span, level 0's refine ms per
+            iteration, kernel A in the refine phases, finite [n, 3] output
+            inside the parent balls, layout stress beside the main
+            embed's;
+  linlog embed  the same with linlog in both params (every level refines
+            through force_atlas_multilevel): the same fields, and kernel E
+            in the refine phases; then one level-0 portable force
+            evaluation split by CUDA events (the gram repulsion per size
+            class and in all, the attraction, the whole ml_forces);
   halo      the halo-sharded flat step at 8 shards (one card, shards
             stacked) on the LJ phase's community graph and partition-ordered
             rmat(20, 8): the plan (blk, B_max, boundary fraction, Ec_max,
@@ -81,13 +96,16 @@ Phases, one JSON line each:
   determinism  two embed_graph runs on mesh3d(12) (random init, then a warm
             start), two runs of the mesh3d(128) flat step and two of the
             community graph's bf16 step, and the halo base case of a small
-            graph (mesh_min_n=1, 200 iterations) on 1 and 8 shards:
-            torch.equal;
+            graph (mesh_min_n=1, 200 iterations) on 1 and 8 shards; two
+            portable embeds of mesh3d(12), a checkpointed embed resumed
+            from its base level against a fresh one, and two runs of
+            embed_via over any_to_multilevel(embed_via_minimization) on
+            mesh3d(5) (with their seconds): torch.equal;
   cli       ``python -m graph_embed_tpu_torch.cli embed`` on a small
             ring-of-cliques file.
 Each path (main, entry, flat per graph, linlog, lj per plan, bf16 embed,
-halo per graph, the sharded embed) is driven with the launch counts set to
-0 just before it and read just after.
+portable embed, linlog embed, halo per graph, the sharded embed) is driven
+with the launch counts set to 0 just before it and read just after.
 Then the nvidia-smi line, the kernel summary as one JSON object (per
 kernel: launches on its path, error, ms on the card alone, host_ms to
 enqueue it, and plain ms as measured, the
@@ -134,6 +152,8 @@ HALO_SHARDS = 8
 HALO_STEPS = 3
 HALO_ITERS = 10
 HALO_REPEATS = 3
+# refinement iterations per level, embed's default (embed.cpp:793)
+REFINE_ITERATIONS = 100
 # the card's peaks for the bounds (NVIDIA's data sheet, H100 SXM at
 # 700 W): HBM bytes per second, float32 operations per second off the
 # tensor cores
@@ -962,6 +982,81 @@ def phase_reference(torch, dev) -> None:
              max_rel_err=rel, tol_rel=2e-3)
         require(rel <= 2e-3, f"the card's {path} flat step agrees with the "
                 "CPU's")
+    reference_portable(torch, dev)
+
+
+def reference_portable(torch, dev) -> None:
+    """The portable refinement and centroids repulsion on the card against
+    their plain versions on the CPU: ml_forces on the first two levels of
+    mesh3d(12) (unit and Galerkin weights) under gram, exact and linlog,
+    each element within RTOL of its rounding scale
+    (``ml_forces(absolute=True)``); five force_atlas_multilevel iterations
+    and one centroids flat step from one warm start, within 2e-3 of the
+    extent."""
+    import numpy as np
+
+    import graph_embed_tpu_torch as gp
+    from graph_embed_tpu_torch.forceatlas import multilevel as PML
+    from graph_embed_tpu_torch.graph import synth
+    from graph_embed_tpu_torch.ops import cuda
+
+    g = synth.mesh3d(12)
+    res = gp.partition_hierarchy(g, 0.1, emit_graphs=True)
+    rng = np.random.default_rng(7)
+    for level, graph in ((0, g), (1, res.coarse_graphs[0])):
+        part = res.levels[level]
+        x = torch.from_numpy(rng.uniform(-1, 1, (graph.n, 3)).astype(
+            np.float32))
+        cA = torch.from_numpy(rng.uniform(-1, 1, (part.num_aggs, 3)).astype(
+            np.float32))
+        for name, kw in (("gram", {}), ("exact", dict(repulsion="exact")),
+                         ("linlog", dict(linlog=True))):
+            params = gp.MultilevelFAParams(**kw)
+            lay_cpu = PML.prepare_multilevel(graph, part, params)
+            pull = PML.external_pull(graph, part, cA, pull=params.pull,
+                                     eps=params.epsilon)
+            want = PML.ml_forces(x, lay_cpu, pull, params)
+            scale = PML.ml_forces(x, lay_cpu, pull, params, absolute=True)
+            lay = PML.prepare_multilevel(graph.to(dev), part.to(dev), params)
+            before = cuda.LAUNCHES.copy()
+            got = PML.ml_forces(x.to(dev), lay, pull.to(dev), params).cpu()
+            used = dict(cuda.LAUNCHES - before)
+            err, ratio = scaled_err(got, want, scale)
+            emit(phase="reference", path="ml_forces", level=level, n=graph.n,
+                 repulsion=params.repulsion, linlog=params.linlog,
+                 attraction=lay.intra.kind, launches=used, max_abs_err=err,
+                 max_err_over_scale=ratio, rtol=RTOL)
+            require(ratio <= RTOL, f"the card's ml_forces ({name}, level "
+                    f"{level}) agrees with the CPU's")
+            require(used.get("edge_linlog" if params.linlog else
+                             f"edge_spmm[{lay.intra.kind}]", 0) == 1,
+                    f"ml_forces ({name}) launched its attraction kernel")
+    part = res.levels[0]
+    cA = torch.from_numpy(rng.uniform(-3, 3, (part.num_aggs, 3)).astype(
+        np.float32))
+    rA = torch.full((part.num_aggs,), 0.5)
+    x0 = torch.from_numpy(rng.uniform(-1, 1, (g.n, 3)).astype(np.float32))
+    for linlog in (False, True):
+        params = gp.MultilevelFAParams(linlog=linlog)
+        runs = [gp.force_atlas_multilevel(
+                    g, part, cA, rA, 3, iterations=5, params=params,
+                    coords0=x0, device=d).cpu()
+                for d in ("cpu", dev)]
+        err, rel = max_err(runs[1], runs[0])
+        emit(phase="reference", path="force_atlas_multilevel", n=g.n,
+             linlog=linlog, iterations=5, max_abs_err=err, max_rel_err=rel,
+             tol_rel=2e-3)
+        require(rel <= 2e-3, "the card's portable refinement (linlog="
+                f"{linlog}) agrees with the CPU's")
+    params = gp.ForceAtlasParams(repulsion="centroids")
+    runs = [gp.force_atlas(g, 3, coords=x0, params=params, iterations=1,
+                           device=d).cpu() for d in ("cpu", dev)]
+    err, rel = max_err(runs[1], runs[0])
+    emit(phase="reference", path="flat step, centroids", n=g.n,
+         groups=max(32, g.n // 64), max_abs_err=err, max_rel_err=rel,
+         tol_rel=2e-3)
+    require(rel <= 2e-3, "the card's centroids flat step agrees with the "
+            "CPU's")
 
 
 def phase_main(torch, g, dev, coarsening: float) -> dict:
@@ -998,8 +1093,235 @@ def phase_main(torch, g, dev, coarsening: float) -> dict:
                 "path")
     emit(phase="main", n=g.n, stored_entries=g.num_edges,
          level_sizes=res.level_sizes, seconds=wall, launches=launches,
-         ball_excess=excess, spans=metrics.records)
-    return launches, wall
+         ball_excess=excess, spans=metrics.records,
+         level0_refine_ms_per_iteration=level0_refine_ms(metrics.records),
+         layout_stress=layout_stress(g, coords))
+    return launches, wall, coords
+
+
+def layout_stress(g, coords) -> float:
+    """Edge stress of a layout at its best global scale, min_a mean over
+    edges (a |x_i - x_j| - 1)^2 (the JAX package's
+    harness/runtests.py:235-250, in numpy): the quality record beside the
+    speed."""
+    import numpy as np
+
+    s, r, _ = g.to_coo_numpy()
+    x = coords.detach().cpu().double().numpy()
+    keep = s < r
+    d = np.linalg.norm(x[s[keep]] - x[r[keep]], axis=1)
+    denom = float((d * d).sum())
+    if denom == 0:
+        return float("inf")
+    a = float(d.sum()) / denom
+    return float(((a * d - 1.0) ** 2).mean())
+
+
+def level0_refine_ms(records: list) -> float:
+    """Level 0's refine span over REFINE_ITERATIONS, in ms."""
+    level0 = [r for r in records if r["phase"] == "refine"
+              and r["level"] == 0][0]
+    return level0["seconds"] * 1e3 / REFINE_ITERATIONS
+
+
+def span_launches(records: list) -> list:
+    """Each span record with the kernel launches made inside it (the
+    difference of the counts logged at its close and at the previous
+    one's)."""
+    from collections import Counter
+
+    out, prev = [], Counter()
+    for rec in records:
+        now = Counter(rec.pop("launch_total"))
+        out.append(dict(rec, launches=dict(now - prev)))
+        prev = now
+    return out
+
+
+def phase_portable_embeds(torch, g, res, dev, main_coords) -> dict:
+    """embed on the main phase's mesh3d(128) hierarchy through the portable
+    refinement: refine_backend='portable' with the default (gram)
+    within-aggregate repulsion, then linlog in both params (every level
+    refines through force_atlas_multilevel, kernel E).  Each run is driven
+    with the launch counts set to 0 just before it and read just after;
+    kernel A must launch in both refine phases, E in the linlog ones.
+    Phase seconds and launches per span, finite [n, 3] output, every
+    vertex inside its parent ball, layout stress beside the slot-space
+    embed's (for the record, not a gate).  Then kernels A and E are held
+    against their plain versions at these embeds' shapes
+    (``portable_holds``, whose worst errors it returns)."""
+    import graph_embed_tpu_torch as gp
+    from graph_embed_tpu_torch.ops import cuda
+
+    class CountingLogger(gp.MetricsLogger):
+        def log(self, **record):
+            record["launch_total"] = dict(cuda.LAUNCHES)
+            return super().log(**record)
+
+    slot_stress = layout_stress(g, main_coords)
+    for name, kw in (
+            ("portable embed", dict(refine_backend="portable")),
+            ("linlog embed", dict(
+                base_params=gp.ForceAtlasParams(linlog=True),
+                refine_params=gp.MultilevelFAParams(linlog=True)))):
+        excess = {}
+
+        def check_level(level, coords, part, centres, radii):
+            v2a = part.vertex_to_agg
+            dist = torch.linalg.norm(coords - centres[v2a], dim=1)
+            slack = 1e-5 * float(centres.abs().max()) + 1e-6
+            excess[level] = float((dist - radii[v2a]).max())
+            require(excess[level] <= slack, f"{name}: level {level} packs "
+                    f"into its parent balls ({excess[level]} > {slack})")
+            require(bool(torch.isfinite(coords).all()),
+                    f"{name}: level {level} finite")
+
+        metrics = CountingLogger()
+        torch.cuda.synchronize()
+        cuda.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        coords = gp.embed([g] + res.coarse_graphs, res.levels, 3,
+                          device=dev, metrics=metrics, on_level=check_level,
+                          refine_iterations=REFINE_ITERATIONS, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(cuda.LAUNCHES)
+        spans = span_launches(metrics.records)
+        require(tuple(coords.shape) == (g.n, 3)
+                and bool(torch.isfinite(coords).all()),
+                f"{name}: finite [n, 3] coordinates")
+        require(sorted(excess) == list(range(len(res.levels))),
+                f"{name}: every level checked against its parent balls")
+        refine = [sp for sp in spans if sp["phase"] == "refine"]
+        require(all(sp["route"] == "portable" for sp in refine),
+                f"{name}: every level refines through the portable path")
+        on_refine = {}
+        for sp in refine:
+            for k, v in sp["launches"].items():
+                on_refine[k] = on_refine.get(k, 0) + v
+        a_launches = sum(v for k, v in on_refine.items()
+                         if k.startswith("edge_spmm["))
+        require(a_launches > 0, f"{name}: kernel A launched in the refine "
+                "phases")
+        if "linlog" in name:
+            require(on_refine.get("edge_linlog", 0) > 0, f"{name}: kernel "
+                    "E launched in the refine phases")
+        emit(phase=name, n=g.n, stored_entries=g.num_edges,
+             level_sizes=res.level_sizes, seconds=wall, launches=launches,
+             refine_launches=on_refine, ball_excess=excess, spans=spans,
+             level0_refine_ms_per_iteration=level0_refine_ms(spans),
+             layout_stress=layout_stress(g, coords),
+             slot_space_layout_stress=slot_stress)
+    portable_split(torch, g, res, dev)
+    return portable_holds(torch, g, res, dev)
+
+
+def portable_holds(torch, g, res, dev) -> dict:
+    """Kernels A and E against their plain versions at the shapes the
+    portable and linlog embeds give them: each level's intra-aggregate CSR
+    (kernel A in unit mode on level 0 and exact mode above it under plain
+    FA, kernel E under linlog), level 0's segment sums (the cut-edge pull
+    over the sender CSR, the epilogue's members-by-aggregate sums) and the
+    base case's CSR under both params.  Returns each kernel's worst
+    (max_abs_err, max_err_over_scale) for the summary line."""
+    import dataclasses
+
+    import graph_embed_tpu_torch as gp
+    from graph_embed_tpu_torch.forceatlas import flat as PF
+    from graph_embed_tpu_torch.forceatlas import multilevel as PML
+    from graph_embed_tpu_torch.ops import edge_spmm as ES
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    worst = {}
+
+    def rand(rows):
+        return torch.rand((rows, 3), generator=gen, device=dev) * 2 - 1
+
+    def held(kernel, got, want, scale, **fields):
+        err, ratio = hold(kernel, got, want, scale, **fields)
+        prev = worst.get(kernel, (0.0, 0.0))
+        worst[kernel] = (max(err, prev[0]), max(ratio, prev[1]))
+
+    def hold_a(csr, x, **fields):
+        abs_csr = (csr if csr.w is None
+                   else dataclasses.replace(csr, w=csr.w.abs()))
+        got = ES.spmv_cuda(x, csr)
+        want = ES.spmv_plain(x, csr)
+        scale = ES.spmv_plain(x.abs(), abs_csr)
+        torch.cuda.synchronize()
+        held(f"edge_spmm[{csr.kind}]", got, want, scale, rows=csr.n_rows,
+             nnz=csr.nnz, **fields)
+
+    def hold_e(csr, x, params, **fields):
+        kw = dict(attract=params.attract, eps=params.epsilon)
+        got = ES.linlog_cuda(x, csr, **kw)
+        want = ES.linlog_plain(x, csr, **kw)
+        scale = ES.linlog_plain(x, csr, absolute=True, **kw)
+        torch.cuda.synchronize()
+        held("edge_linlog", got, want, scale, rows=csr.n_rows, nnz=csr.nnz,
+             **fields)
+
+    graphs = [g] + res.coarse_graphs
+    for linlog in (False, True):
+        params = gp.MultilevelFAParams(linlog=linlog)
+        path = "linlog embed" if linlog else "portable embed"
+        for level, part in enumerate(res.levels):
+            lay = PML.prepare_multilevel(graphs[level].to(dev), part.to(dev),
+                                         params)
+            x = rand(graphs[level].n)
+            if linlog:
+                hold_e(lay.intra, x, params, path=path, level=level,
+                       table="intra-aggregate")
+            else:
+                hold_a(lay.intra, x, path=path, level=level,
+                       table="intra-aggregate")
+            if level == 0 and not linlog:
+                hold_a(lay.sender_csr, rand(lay.sender_csr.n_cols),
+                       path=path, level=level, table="sender (cut-edge pull)")
+                hold_a(lay.agg_csr, x, path=path, level=level,
+                       table="members by aggregate (epilogue)")
+        base = graphs[-1].to(dev)
+        base_params = gp.ForceAtlasParams(linlog=linlog)
+        csr = PF.FlatAttraction.build(base, base_params).csr
+        x = rand(base.n)
+        if linlog:
+            hold_e(csr, x, base_params, path=path, level=len(res.levels),
+                   table="base case")
+        else:
+            hold_a(csr, x, path=path, level=len(res.levels),
+                   table="base case")
+    return worst
+
+
+def portable_split(torch, g, res, dev) -> None:
+    """Where one portable force evaluation of level 0 goes, by CUDA events
+    (median of 10): the gram repulsion of each size class alone and of
+    all, the attraction (kernel A), and the whole ml_forces."""
+    import graph_embed_tpu_torch as gp
+    from graph_embed_tpu_torch.forceatlas import multilevel as PML
+    from graph_embed_tpu_torch.ops import edge_spmm as ES
+
+    params = gp.MultilevelFAParams()
+    lay = PML.prepare_multilevel(g.to(dev), res.levels[0].to(dev), params)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.rand((g.n, 3), generator=gen, device=dev) * 2 - 1
+    deg_p1 = lay.deg_loc + 1.0
+
+    def repulsion(tables):
+        return lambda: PML.aggregate_repulsion(x, tables, deg_p1,
+                                               params.repel, params.epsilon)
+
+    classes = [dict(S=int(t.shape[1]), aggregates=int(t.shape[0]),
+                    ms=cuda_ms(repulsion((t,)), reps=10))
+               for t in lay.members]
+    emit(phase="portable refine split", level=0, n=g.n,
+         intra_entries=lay.intra.nnz, attraction=lay.intra.kind,
+         classes=classes, repulsion_ms=cuda_ms(repulsion(lay.members),
+                                               reps=10),
+         attraction_ms=cuda_ms(lambda: ES.attraction_spmv(
+             x, lay.intra, lay.intra_rowsum), reps=10),
+         ml_forces_ms=cuda_ms(lambda: PML.ml_forces(
+             x, lay, torch.zeros_like(x), params), reps=10))
 
 
 def drive_steps(torch, tfa, params, dev, iters: int, seed: int = 0):
@@ -1085,11 +1407,76 @@ def phase_determinism(torch, flat: dict, lj: dict, dev) -> None:
             for k in (1, HALO_SHARDS)]
     require(torch.equal(runs[0], runs[1]), "the halo base case on 1 and 8 "
             "shards is equal")
+    determinism_portable(torch, g, dev)
     emit(phase="determinism", embed="mesh3d(12) x2, cold and warm",
          flat=f"mesh3d({MESH_SIDE}) 5 steps x2",
          bf16_flat="community_rmat bf16 5 steps x2",
          halo_base="mesh3d(12), mesh_min_n=1, 200 iterations, 1 vs 8 "
          "shards", equal=True)
+
+
+def determinism_portable(torch, g, dev) -> None:
+    """On mesh3d(12): two portable embeds equal; an embed resumed from its
+    checkpointed base level equal to a fresh one; two runs of embed_via
+    with any_to_multilevel(embed_via_minimization) equal, with their
+    seconds."""
+    import shutil
+
+    import graph_embed_tpu_torch as gp
+    from graph_embed_tpu_torch.embed.checkpoint import CheckpointStore
+    from graph_embed_tpu_torch.graph import synth
+
+    kw = dict(device=dev, base_iterations=2000, seed=7,
+              refine_backend="portable")
+    runs = [gp.embed_graph(g, 3, **kw)[0] for _ in range(2)]
+    require(torch.equal(runs[0], runs[1]), "two portable embeds on the "
+            "card are equal")
+    res = gp.partition_hierarchy(g, 0.1, emit_graphs=True)
+    graphs, k = [g] + res.coarse_graphs, len(res.levels)
+    work = os.path.join(ROOT, "graph_embed_tpu_torch", "_build", "smoke",
+                        "checkpoint")
+    shutil.rmtree(work, ignore_errors=True)
+    full = CheckpointStore(os.path.join(work, "full"))
+    fresh = gp.embed(graphs, res.levels, 3, store=full, **kw)
+    base = CheckpointStore(os.path.join(work, "base"))
+    base.save_level(k, **full.load_level(k))
+    metrics = gp.MetricsLogger()
+    resumed = gp.embed(graphs, res.levels, 3, store=base, metrics=metrics,
+                       **kw)
+    require(metrics.records[0] == {"phase": "resume", "level": k},
+            "the embed resumed from its base level")
+    require(torch.equal(resumed, fresh), "the resumed embed equals the "
+            "fresh one")
+    shutil.rmtree(work, ignore_errors=True)
+
+    small = synth.mesh3d(5)
+    sres = gp.partition_hierarchy(small, 0.1, emit_graphs=True)
+
+    def flat(sub, dim, seed=0):
+        return gp.embed_via_minimization(sub, dim, iterations=3, seed=seed,
+                                         device=dev)
+
+    block = gp.any_to_multilevel(flat)
+    walls, outs = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(gp.embed_via([small] + sres.coarse_graphs, sres.levels,
+                                 3, block, device=dev, base_iterations=2000,
+                                 refine_iterations=REFINE_ITERATIONS,
+                                 seed=3))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    require(tuple(outs[0].shape) == (small.n, 3)
+            and bool(torch.isfinite(outs[0]).all()),
+            "embed_via over the minimization embedder is finite")
+    require(torch.equal(outs[0], outs[1]), "two embed_via runs over the "
+            "minimization embedder are equal")
+    emit(phase="determinism", portable_embed="mesh3d(12) x2",
+         resume=f"mesh3d(12) from level {k}",
+         embed_via_minimization=f"mesh3d(5), {small.n} vertices, levels "
+         f"{sres.level_sizes}, 3 sweeps per aggregate", seconds=walls,
+         equal=True)
 
 
 def halo_steps(torch, g, dev):
@@ -1402,10 +1789,14 @@ def main() -> int:
             kernels[name][key] = max(kernels[name][key], other[key])
     entry = phase_entry(torch, slots)
     phase_reference(torch, dev)
-    launches, f32_wall = phase_main(torch, g, dev, 0.1)
+    launches, f32_wall, main_coords = phase_main(torch, g, dev, 0.1)
     flat_launches = phase_flat(torch, flat, dev)
     lj_launches = phase_lj(torch, lj, dev)
     phase_bf16_embed(torch, g, dev, f32_wall)
+    for name, errs in phase_portable_embeds(torch, g, res, dev,
+                                            main_coords).items():
+        for key, v in zip(("max_abs_err", "max_err_over_scale"), errs):
+            kernels[name][key] = max(kernels[name][key], v)
     kernels["ring_attraction"] = phase_halo(torch, lj, dev)
     phase_sharded_embed(torch, g, res, dev)
     phase_determinism(torch, flat, lj, dev)

@@ -9,10 +9,13 @@ fine (embed.cpp:576-796):
      grandparent further down (:680-756);
   3. renormalize children into their parent balls (:757-777), from the
      second level below the base case on;
-  4. refine with the slot-space multilevel ForceAtlas, 100 iterations
-     (:786-793).
+  4. refine with the multilevel ForceAtlas, 100 iterations (:786-793):
+     the slot-space refinement, or the portable one
+     (``forceatlas.multilevel``), which every linlog level takes.
 Level state stays on the chosen device from level to level; only the
-radii sweep visits the host, with [m, d] centres.
+radii sweep visits the host, with [m, d] centres.  With a checkpoint store
+each level is saved as it completes and a rerun resumes after the last
+completed level.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import numpy as np
 import torch
 
 from ..forceatlas.flat import force_atlas
+from ..forceatlas.multilevel import force_atlas_multilevel, prepare_multilevel
 from ..forceatlas.multilevel_tiled import prepare_refine, refine_level_tiled
 from ..graph.csr import Graph
 from ..graph.reorder import apply_order, partition_order
@@ -69,12 +73,17 @@ def project_to_levels(coords0: torch.Tensor, parts: list[Partition]):
     its members in vertex order (``ops.segment``: kernel A on the card)."""
     cs = [coords0]
     for p in parts:
-        csr = segment.segment_csr(p.vertex_to_agg_numpy(), p.num_aggs,
-                                  device=coords0.device)
+        csr = p.to(coords0.device).segment_csr()
         sizes = (csr.indptr[1:] - csr.indptr[:-1]).to(coords0.dtype)
         mean = segment.segment_sum(cs[-1], csr)
         cs.append(mean / torch.clamp(sizes, min=1)[:, None])
     return cs
+
+
+#: each refinement route's (layout prep, refine level)
+_ROUTES = {"tiled": (prepare_refine, refine_level_tiled),
+           "portable": (prepare_multilevel, force_atlas_multilevel),
+           "sharded": (prepare_refine_sharded, refine_level_sharded)}
 
 
 def _level_seeds(seed: int, k: int) -> dict[int, int]:
@@ -106,16 +115,29 @@ def embed(graphs: list[Graph], parts: list[Partition], dim: int = 3, *,
     ``base_iterations=None`` resolves to ``default_base_iterations``.
     ``refine_backend``: "auto" and "tiled" both run the slot-space
     refinement (kernels A and B on CUDA, their plain versions on the CPU)
-    on every level and device.  The JAX driver's auto switch to its
-    portable path on CPU backends and small levels (driver.py:247-249) is a
-    TPU-only choice; the portable refinement is not ported.
+    on every level and device; "portable" runs
+    ``forceatlas.multilevel.force_atlas_multilevel`` (member tables, kernel
+    A).  Every level whose ``refine_params.linlog`` is set takes the
+    portable refinement, whatever the backend (driver.py:267-279): it
+    alone has the log term (kernel E).  The JAX driver's auto switch to
+    its portable path on CPU backends and small levels (driver.py:247-249)
+    is a TPU-only choice.
     ``coords0``: optional [n_0, dim] warm start; every level starts from
     its aggregate-mean projection instead of random init.
     ``on_level(l, coords, part, coords_parent, r_parent)`` is called after
     each refined level with its partition and the parent centres and radii
     it was packed into.
     ``metrics`` receives one record per phase (base, radii, layout: the
-    host's slot-layout prep, refine).
+    host's layout prep, refine with its ``route``; "resume" when a store
+    supplies levels).
+    ``final_block`` replaces level 0's refinement with a building block
+    (``via.any_to_multilevel``; the embedViaMultilevel hook,
+    src/embed.cpp:332), called as ``final_block(A_0, P_0, coords_A, r_A,
+    dim, seed=...)``.
+    ``store`` (``checkpoint.CheckpointStore``) saves each level as it
+    completes; a store that holds levels k, k-1, ..., l resumes from
+    level l.  The per-level seeds are derived up front, so a resumed embed
+    equals a fresh one.
     ``mesh`` (``parallel.mesh.make_mesh``, on ``device``): levels of at
     least ``mesh_min_n`` vertices refine with their aggregates dealt over
     the mesh's shards (``parallel.sharded_ml``), and with
@@ -123,14 +145,10 @@ def embed(graphs: list[Graph], parts: list[Partition], dim: int = 3, *,
     (partition-ordered, vertex-partitioned, invariant sampling;
     ``base_order`` gives its ordering, new position -> old id, instead of
     partitioning the level again).  Both give the same layout at any shard
-    count.  ``sharding="replicated"`` (parallel/sharded.py) is not ported.
+    count.  ``sharding="replicated"`` (parallel/sharded.py) is not ported,
+    and a mesh with linlog refinement raises: the reference's sharded
+    refinement has no log term (reference fault 8, ROADMAP queue 3).
     """
-    if final_block is not None:
-        raise NotImplementedError("final_block (embedVia) is not ported yet "
-                                  "(ROADMAP queue 1, item 5: via)")
-    if store is not None:
-        raise NotImplementedError("checkpointing is not ported yet "
-                                  "(ROADMAP queue 1, item 5: checkpoint)")
     if sharding not in ("replicated", "halo"):
         # a typo must not fall through to another design
         raise ValueError(f"unknown sharding {sharding!r}; "
@@ -140,11 +158,15 @@ def embed(graphs: list[Graph], parts: list[Partition], dim: int = 3, *,
             "the replicated multi-shard design (parallel/sharded.py) is not "
             "ported yet (ROADMAP queue 1, item 6: sharded.py); pass "
             "sharding='halo'")
-    if refine_backend == "portable":
-        raise NotImplementedError("the portable refinement is not ported "
-                                  "yet (ROADMAP queue 1, item 3)")
-    if refine_backend not in ("auto", "tiled"):
+    if refine_backend not in ("auto", "tiled", "portable"):
         raise ValueError(f"unknown refine_backend {refine_backend!r}")
+    refine_params = refine_params or MultilevelFAParams()
+    if mesh is not None and refine_params.linlog:
+        raise NotImplementedError(
+            "linlog refinement with a mesh: the reference's sharded "
+            "refinement folds attraction into its SpMV tiles and drops the "
+            "log term (reference fault 8, ROADMAP queue 3), and the port "
+            "does not copy it")
     validate_hierarchy(graphs, parts)
     device = torch.device(device)
     if mesh is not None and mesh.device != device:
@@ -153,7 +175,6 @@ def embed(graphs: list[Graph], parts: list[Partition], dim: int = 3, *,
     graphs = [g.to(device) for g in graphs]
     parts = [p.to(device) for p in parts]
     base_params = base_params or ForceAtlasParams()
-    refine_params = refine_params or MultilevelFAParams()
     k = len(parts)
     if base_iterations is None:
         base_iterations = default_base_iterations(graphs[k].n, base_params)
@@ -164,19 +185,36 @@ def embed(graphs: list[Graph], parts: list[Partition], dim: int = 3, *,
             torch.as_tensor(coords0).to(device, graphs[0].dtype), parts)
 
     metrics = metrics or MetricsLogger()
-    with metrics.span("base", device, level=k, n=graphs[k].n):
-        warm_k = warm[k] if warm is not None else None
-        if mesh is not None and graphs[k].n >= mesh_min_n:
-            coords_A = _halo_base_case(graphs[k], dim, mesh, base_params,
-                                       base_iterations, seeds[k], warm_k,
-                                       order=base_order)
-        else:
-            coords_A = force_atlas(graphs[k], dim, seed=seeds[k],
-                                   params=base_params,
-                                   iterations=base_iterations,
-                                   coords=warm_k, device=device)
     r_Ac = coords_Ac = None
-    for l in range(k - 1, -1, -1):
+    resume_from = store.last_completed(k) if store is not None else None
+    if resume_from is not None:
+        data = store.load_level(resume_from)
+
+        def load(name):
+            return torch.from_numpy(data[name]).to(device, graphs[0].dtype)
+
+        coords_A = load("coords")
+        if "r_A" in data:
+            r_Ac, coords_Ac = load("r_A"), load("coords_parent")
+        start = resume_from - 1
+        metrics.log(phase="resume", level=resume_from)
+    else:
+        with metrics.span("base", device, level=k, n=graphs[k].n):
+            warm_k = warm[k] if warm is not None else None
+            if mesh is not None and graphs[k].n >= mesh_min_n:
+                coords_A = _halo_base_case(graphs[k], dim, mesh, base_params,
+                                           base_iterations, seeds[k], warm_k,
+                                           order=base_order)
+            else:
+                coords_A = force_atlas(graphs[k], dim, seed=seeds[k],
+                                       params=base_params,
+                                       iterations=base_iterations,
+                                       coords=warm_k, device=device)
+        if store is not None:
+            store.save_level(k, coords=coords_A)
+        start = k - 1
+    portable = refine_backend == "portable" or refine_params.linlog
+    for l in range(start, -1, -1):
         A_c = graphs[l + 1]
         with metrics.span("radii", device, level=l, m=A_c.n):
             if r_Ac is None:
@@ -192,23 +230,34 @@ def embed(graphs: list[Graph], parts: list[Partition], dim: int = 3, *,
             v2a = parts[l].vertex_to_agg
             local0 = ((warm[l] - coords_A[v2a])
                       / torch.clamp(r_A[v2a], min=1e-9)[:, None])
-        sharded = mesh is not None and graphs[l].n >= mesh_min_n
-        with metrics.span("layout", device, level=l, n=graphs[l].n):
-            if sharded:
-                layout = prepare_refine_sharded(graphs[l], parts[l],
-                                                refine_params, mesh.ndev)
-            else:
-                layout = prepare_refine(graphs[l], parts[l], refine_params)
-        refine = refine_level_sharded if sharded else refine_level_tiled
-        with metrics.span("refine", device, level=l, n=graphs[l].n,
-                          num_aggs=parts[l].num_aggs):
-            coords = refine(graphs[l], parts[l], coords_A, r_A, dim,
-                            seed=seeds[l], iterations=refine_iterations,
-                            params=refine_params, layout=layout,
-                            coords0=local0,
-                            **({"mesh": mesh} if sharded else {}))
+        span = dict(level=l, n=graphs[l].n, num_aggs=parts[l].num_aggs)
+        if l == 0 and final_block is not None:
+            with metrics.span("refine", device, route="final_block", **span):
+                coords = final_block(graphs[0], parts[0], coords_A, r_A,
+                                     dim, seed=seeds[0])
+        else:
+            sharded = mesh is not None and graphs[l].n >= mesh_min_n
+            route = ("sharded" if sharded else
+                     "portable" if portable else "tiled")
+            prepare, refine = _ROUTES[route]
+            with metrics.span("layout", device, level=l, n=graphs[l].n):
+                layout = prepare(graphs[l], parts[l], refine_params,
+                                 *([mesh.ndev] if sharded else []))
+            with metrics.span("refine", device, route=route, **span):
+                coords = refine(graphs[l], parts[l], coords_A, r_A, dim,
+                                seed=seeds[l], iterations=refine_iterations,
+                                params=refine_params, layout=layout,
+                                coords0=local0,
+                                **({"mesh": mesh} if sharded else
+                                   {"device": device} if route == "portable"
+                                   else {}))
         if on_level is not None:
             on_level(l, coords, parts[l], coords_A, r_A)
+        if store is not None:
+            # what a resume below this level needs: its coordinates, the
+            # parent radii and the renormalized parent centres
+            store.save_level(l, coords=coords, r_A=r_A,
+                             coords_parent=coords_A)
         coords_Ac, r_Ac = coords_A, r_A
         coords_A = coords
     return coords_A

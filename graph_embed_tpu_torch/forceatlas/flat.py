@@ -8,7 +8,9 @@ the folded constants c_e (forces.fold_edge_weights) in float32: on a CUDA
 device it runs through kernel A.  linlog attraction keeps the per-edge
 distance and runs through kernel E over the same CSR.  Both kernels own one
 row per thread and sum in CSR order, so the card's result is bitwise
-repeatable.
+repeatable.  ``repulsion="centroids"`` takes the far field of a grouping
+(``farfield.py``); without one, ``force_atlas`` builds the JAX package's
+default, ``partition_num_parts(g, max(32, n // 64))``.
 """
 
 from __future__ import annotations
@@ -19,8 +21,10 @@ import torch
 
 from ..graph.csr import Graph
 from ..ops import edge_spmm as ES
+from ..partition.hierarchy import partition_num_parts
 from ..utils.device import resolve
 from ..utils.params import ForceAtlasParams
+from . import farfield as FF
 from . import forces as F
 
 
@@ -56,10 +60,11 @@ class FlatAttraction:
 def compute_forces(coords, g: Graph, deg, params: ForceAtlasParams, *,
                    attraction: FlatAttraction | None = None,
                    generator: torch.Generator | None = None,
-                   sample_idx: torch.Tensor | None = None):
+                   sample_idx: torch.Tensor | None = None, groups=None):
     """Total force per vertex for one iteration (forceatlas.hpp:146-212).
     Sampled repulsion takes ``sample_idx`` or draws it from
-    ``generator``."""
+    ``generator``; centroids repulsion takes ``groups`` (a
+    ``farfield.Groups``, built once per layout)."""
     deg_p1 = deg + 1.0
     eps = params.epsilon
     if params.repulsion == "exact":
@@ -76,9 +81,11 @@ def compute_forces(coords, g: Graph, deg, params: ForceAtlasParams, *,
         rep = F.repulsion_sampled(coords, deg_p1, params.repel, eps,
                                   sample_idx)
     elif params.repulsion == "centroids":
-        raise NotImplementedError(
-            "centroids repulsion is not ported yet (ROADMAP queue 1, "
-            "item 5: remaining single-device features)")
+        if groups is None:
+            raise ValueError("centroids repulsion needs its groups "
+                             "(farfield.Groups)")
+        rep = FF.centroid_repulsion(coords, deg_p1, groups, params.repel,
+                                    eps)
     else:
         raise ValueError(f"unknown repulsion {params.repulsion!r}")
     if attraction is None:
@@ -91,10 +98,11 @@ def compute_forces(coords, g: Graph, deg, params: ForceAtlasParams, *,
 def fa_step(coords, forces_prev, g: Graph, deg, params: ForceAtlasParams,
             *, attraction: FlatAttraction | None = None,
             generator: torch.Generator | None = None,
-            sample_idx: torch.Tensor | None = None):
+            sample_idx: torch.Tensor | None = None, groups=None):
     """One full iteration; returns (coords', forces)."""
     f = compute_forces(coords, g, deg, params, attraction=attraction,
-                       generator=generator, sample_idx=sample_idx)
+                       generator=generator, sample_idx=sample_idx,
+                       groups=groups)
     new_coords = F.speed_update(coords, f, forces_prev, deg + 1.0,
                                 ks=params.ks, ksmax=params.ksmax,
                                 tolerate=params.tolerate)
@@ -103,15 +111,17 @@ def fa_step(coords, forces_prev, g: Graph, deg, params: ForceAtlasParams,
 
 def force_atlas(g: Graph, dim: int = 2, *, coords=None, seed: int = 0,
                 params: ForceAtlasParams | None = None,
-                iterations: int | None = None,
+                iterations: int | None = None, groups=None,
                 device="cuda") -> torch.Tensor:
     """Flat ForceAtlas layout on ``device`` (the graph moves there; the
     card by default, the CPU only when asked for).
 
     ``coords`` warm-starts the layout (forceatlas.hpp:118-125); otherwise
     U(-1, 1)^dim init from a ``torch.Generator`` seeded with ``seed``,
-    which also draws the sampled repulsion's partners.  ``x_precision``
-    has no effect here, as in the reference's flat.py."""
+    which also draws the sampled repulsion's partners.  ``groups`` (a
+    Partition) are the centroids repulsion's; by default
+    ``partition_num_parts(g, max(32, n // 64))`` (flat.py:153-157).
+    ``x_precision`` has no effect here, as in the reference's flat.py."""
     params = params or ForceAtlasParams()
     if iterations is None:
         iterations = params.iterations
@@ -124,10 +134,15 @@ def force_atlas(g: Graph, dim: int = 2, *, coords=None, seed: int = 0,
         coords = torch.as_tensor(coords, dtype=g.dtype).to(g.device)
     deg = g.degrees(params.use_weights)
     attraction = FlatAttraction.build(g, params)
+    if params.repulsion == "centroids":
+        if groups is None:
+            groups = partition_num_parts(g, max(32, g.n // 64))
+        groups = FF.Groups.build(groups, g.device)
     forces_prev = torch.zeros_like(coords)
     for _ in range(iterations):
         coords, forces_prev = fa_step(coords, forces_prev, g, deg, params,
-                                      attraction=attraction, generator=gen)
+                                      attraction=attraction, generator=gen,
+                                      groups=groups)
     if params.normalize:
         coords = F.normalize_coords(coords)
     return coords

@@ -1,23 +1,193 @@
-"""Per-level pieces of forceAtlasMultilevel (include/forceatlas.hpp:
-314-574) that the slot-space refinement needs.  Counterpart of
-graph_embed_tpu/forceatlas/multilevel.py:93-135; the portable
-``force_atlas_multilevel`` is not ported yet (ROADMAP queue 1,
-item 3).
+"""Per-aggregate ForceAtlas refinement, the portable form
+(forceAtlasMultilevel, include/forceatlas.hpp:314-574).
 
-Both per-vertex sums run over the graph's stored entries, which are sorted
-by sender, through ``ops.segment``: kernel A's unit mode on the card (each
-vertex's entries are added in a fixed order, so the result is bitwise
-repeatable), its plain version on the CPU.
+Counterpart of graph_embed_tpu/forceatlas/multilevel.py.  One iteration
+runs over every vertex of the level at once:
+
+* repulsion only within an aggregate (forceatlas.hpp:394-410): batched
+  [B, S, S] blocks over member tables in power-of-two size classes
+  (``build_member_buckets``), in the gram form unless the parameters ask
+  for ``"exact"`` per-pair differences; full-float32 matmuls (no TF32, see
+  forces.py), each member's force written back by index (every vertex is
+  in one aggregate, so no two writes meet);
+* intra-aggregate attraction (:415-450) over an intra-aggregate CSR built
+  once per level on the host (entries with agg(s) == agg(r), s != r;
+  weights folded with the local degrees): kernel A under plain FA,
+  ``attract * (A x - x * rowsum)`` in its unit mode when every folded
+  weight is 1 and its exact mode otherwise; kernel E under linlog, the
+  only attraction of the port with the log term;
+* the cut-edge pull (:451-466), a per-vertex vector computed once per
+  level, divided by max(|x_i|, eps), and gravity (:411-414, :469-473);
+* the epilogue (:539-570): members centred, scaled by their max norm
+  (clamped at eps) and placed at coords_A[a] + r_A[a] * x / max.
+
+Every per-vertex or per-aggregate sum runs through ``ops.segment`` or the
+kernels' own row-owned walks (no ``index_add_``), so a run on the card is
+bitwise repeatable.  On CPU tensors the kernels take their plain versions;
+the state keeps the graph's dtype there (float64 in the parity tests).
 """
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
 from ..graph.csr import Graph
 from ..ops import edge_spmm as ES
 from ..ops import segment
 from ..partition.interpolation import Partition
+from ..utils.device import resolve
+from ..utils.params import MultilevelFAParams
+from . import forces as F
+
+#: the most [aggregate, member, member] pairs one repulsion chunk holds:
+#: a bound on memory, not on the arithmetic (JAX's 256-aggregate,
+#: 2M-pair chunk, multilevel.py:187, bounds a TPU scan instead)
+PAIR_BUDGET = 1 << 25
+
+
+def _member_rows(part: Partition):
+    """([m, max(count, 1)] member ids padded with n, counts) on the host:
+    row a lists aggregate a's vertices in increasing id."""
+    v2a = part.vertex_to_agg_numpy()
+    m = part.num_aggs
+    n = v2a.shape[0]
+    order = np.argsort(v2a, kind="stable")
+    counts = np.bincount(v2a, minlength=m)
+    starts = np.concatenate([[0], np.cumsum(counts)])
+    pos = np.arange(n) - starts[v2a[order]]
+    full = np.full((m, max(int(counts.max()) if counts.size else 1, 1)), n,
+                   dtype=np.int64)
+    full[v2a[order], pos] = order
+    return full, counts
+
+
+def _round_up(v: int, k: int) -> int:
+    return ((v + k - 1) // k) * k
+
+
+def build_members(part: Partition, *, pad_multiple: int = 8) -> np.ndarray:
+    """[m, S] int32 member table (host): row a lists the vertex ids of
+    aggregate a, padded with n; S is the largest aggregate rounded up to
+    ``pad_multiple``."""
+    full, counts = _member_rows(part)
+    S = max(_round_up(int(counts.max()) if counts.size else 1,
+                      pad_multiple), pad_multiple)
+    out = np.full((part.num_aggs, S), part.n, dtype=np.int32)
+    out[:, :full.shape[1]] = full
+    return out
+
+
+def build_member_buckets(part: Partition, *,
+                         pad_multiple: int = 8) -> tuple[np.ndarray, ...]:
+    """Member tables in power-of-two size classes (host int32, padded with
+    n): aggregates of at most ``pad_multiple`` members, then at most twice
+    that, and so on, so one large aggregate does not pad the many small
+    ones.  The classes and widths are the JAX package's."""
+    full, counts = _member_rows(part)
+    n = part.n
+    buckets = []
+    cap = pad_multiple
+    remaining = np.arange(part.num_aggs)
+    while remaining.size:
+        in_b = remaining[counts[remaining] <= cap]
+        remaining = remaining[counts[remaining] > cap]
+        if in_b.size:
+            w = min(cap, full.shape[1])
+            arr = np.full((in_b.size, _round_up(w, pad_multiple)), n,
+                          dtype=np.int32)
+            arr[:, :w] = full[in_b, :w]
+            buckets.append(arr)
+        cap *= 2
+    if not buckets:
+        buckets.append(np.full((1, pad_multiple), n, np.int32))
+    return tuple(buckets)
+
+
+def check_full_float32() -> None:
+    """The gram form needs full-float32 products: TF32 moves near pairs to
+    the eps clamp (forces.py:58-62)."""
+    if torch.get_float32_matmul_precision() != "highest":
+        raise RuntimeError("the gram-form repulsion needs "
+                           "torch.set_float32_matmul_precision('highest') "
+                           "(TF32 off)")
+
+
+def _agg_repulsion_chunk(mem, coords, deg_p1, repel: float, eps: float,
+                         exact: bool, absolute: bool = False):
+    """Within-aggregate repulsion of a chunk of aggregates: mem [B, S]
+    member ids padded with n; returns [B, S, d] (0 on padding).  With
+    ``absolute``, each element's rounding scale instead (see
+    ``aggregate_repulsion``)."""
+    n = coords.shape[0]
+    valid = mem < n
+    idx = torch.clamp(mem, max=n - 1)
+    y = coords[idx]                                        # [B, S, d]
+    w = torch.where(valid, deg_p1[idx], torch.zeros((), dtype=coords.dtype,
+                                                    device=coords.device))
+    S = mem.shape[1]
+    skip = (torch.eye(S, dtype=torch.bool, device=coords.device)[None]
+            | ~valid[:, None, :])
+    if exact:
+        diff = y[:, :, None, :] - y[:, None, :, :]         # [B, S, S, d]
+        dist = torch.clamp(torch.sqrt(torch.sum(diff * diff, dim=-1)),
+                           min=eps)
+        W = (w[:, None, :] / (dist * dist * dist)).masked_fill(skip, 0.0)
+        if absolute:
+            diff = diff.abs()
+        f = torch.einsum("bstd,bst->bsd", diff, W)
+    else:
+        sq = torch.sum(y * y, dim=-1)                      # [B, S]
+        d2 = sq[:, :, None] + sq[:, None, :] - 2.0 * torch.bmm(
+            y, y.transpose(1, 2))
+        dist = torch.clamp(torch.sqrt(torch.clamp(d2, min=0.0)), min=eps)
+        W = (w[:, None, :] / (dist * dist * dist)).masked_fill(skip, 0.0)
+        if absolute:
+            # d^2 from the gram identity is off by a few ulp of
+            # |y_i|^2 + |y_j|^2, which W amplifies by that over d^2
+            W = W * (1.0 + (sq[:, :, None] + sq[:, None, :])
+                     / (dist * dist))
+            y_abs = y.abs()
+            f = y_abs * torch.sum(W, dim=-1, keepdim=True) + torch.bmm(
+                W, y_abs)
+        else:
+            f = y * torch.sum(W, dim=-1, keepdim=True) - torch.bmm(W, y)
+    scale = repel * w
+    return (scale.abs() if absolute else scale)[:, :, None] * f
+
+
+def aggregate_repulsion(coords, members, deg_p1, repel: float, eps: float,
+                        *, exact: bool = False, max_pairs: int = PAIR_BUDGET,
+                        absolute: bool = False) -> torch.Tensor:
+    """[n, d] within-aggregate repulsion (forceatlas.hpp:394-410):
+    repel * w_i * sum_{j != i in agg(i)} w_j (x_i - x_j) / max(d_ij, eps)^3
+    with w = ``deg_p1``.  ``members``: one [m, S] table or a sequence of
+    them (``build_member_buckets``), host arrays or tensors; each table
+    runs in chunks of at most ``max_pairs`` member pairs.
+
+    ``absolute`` gives each element's rounding scale instead: the sum of
+    its terms' magnitudes, and for the gram form each pair's term also
+    scaled by (|x_i|^2 + |x_j|^2) / d_ij^2, the cancellation of the gram
+    identity.  Two float32 evaluations in another order stay within a
+    small multiple of 2^-24 of it."""
+    check_full_float32()
+    n, d = coords.shape
+    if isinstance(members, (np.ndarray, torch.Tensor)):
+        members = (members,)
+    out = coords.new_zeros((n + 1, d))
+    for table in members:
+        table = torch.as_tensor(table, device=coords.device).long()
+        m, S = table.shape
+        per = max(1, max_pairs // max(S * S, 1))
+        for a0 in range(0, m, per):
+            mem = table[a0: a0 + per]
+            f = _agg_repulsion_chunk(mem, coords, deg_p1, repel, eps, exact,
+                                     absolute)
+            # padding lands in row n, which is dropped
+            out[mem.reshape(-1)] = f.reshape(-1, d)
+    return out[:n]
 
 
 def sender_csr(g: Graph) -> ES.EdgeCSR:
@@ -57,3 +227,179 @@ def external_pull(g: Graph, part: Partition, coords_A: torch.Tensor, *,
     scale = torch.where(a_s != a_r, pull / dist, torch.zeros_like(dist))
     per_entry = torch.stack([diff[k] * scale for k in range(d)], dim=1)
     return segment.segment_sum(per_entry, csr or sender_csr(g))
+
+
+def _intra_csr(g: Graph, part: Partition, deg_loc: torch.Tensor,
+              params: MultilevelFAParams) -> tuple[ES.EdgeCSR, torch.Tensor]:
+    """(CSR, row sums) of the intra-aggregate attraction (host build): the
+    stored entries with agg(s) == agg(r) and s != r in sender order,
+    weights folded by ``forces.fold_edge_weights`` with the local degrees
+    (nohubs divides by deg_loc + 1) and kept in the graph's dtype.  Unit
+    weights (every folded weight exactly 1) under plain FA give kernel A's
+    unit mode; linlog always keeps the weights, as kernel E takes them."""
+    s, r, w = g.to_coo_numpy()
+    v2a = part.vertex_to_agg_numpy()
+    keep = (v2a[s] == v2a[r]) & (s != r)
+    s, r = s[keep], r[keep]
+    deg_host = deg_loc.cpu().numpy().astype(np.float64)
+    c = F.fold_edge_weights(np.asarray(w, np.float64)[keep], deg_host[s],
+                            use_weights=params.use_weights,
+                            delta=params.delta, nohubs=params.nohubs)
+    np_dtype = torch.empty(0, dtype=g.dtype).numpy().dtype
+    c = c.astype(np_dtype)
+    unit = not params.linlog and bool(np.all(c == 1.0))
+    csr, _ = ES.build_csr(s, r, None if unit else c, g.n, device=g.device,
+                          exact=True)
+    if not unit:
+        csr = dataclasses.replace(csr, w=torch.from_numpy(c).to(g.device))
+    rowsum = np.bincount(s, weights=None if unit else c.astype(np.float64),
+                         minlength=g.n)
+    return csr, torch.from_numpy(rowsum.astype(np_dtype)).to(g.device)
+
+
+@dataclasses.dataclass(frozen=True)
+class MultilevelLayout:
+    """One level's tables for the portable refinement, built once on the
+    host and placed on the graph's device: the member tables by size class,
+    the intra-aggregate CSR and its row sums, the local degrees, the
+    sender CSR of the cut-edge pull and the members-by-aggregate CSR of
+    the epilogue."""
+
+    members: tuple
+    intra: ES.EdgeCSR
+    intra_rowsum: torch.Tensor
+    deg_loc: torch.Tensor
+    sender_csr: ES.EdgeCSR
+    agg_csr: ES.EdgeCSR
+    vertex_to_agg: torch.Tensor
+    num_aggs: int
+
+
+def prepare_multilevel(g: Graph, part: Partition,
+                       params: MultilevelFAParams) -> MultilevelLayout:
+    """The portable refinement's tables of one level (host prep; the local
+    degrees are summed on the device by kernel A)."""
+    part = part.to(g.device)
+    deg_loc = local_degrees(g, part, params.use_weights)
+    intra, rowsum = _intra_csr(g, part, deg_loc, params)
+    members = tuple(torch.from_numpy(t.astype(np.int64)).to(g.device)
+                    for t in build_member_buckets(part))
+    return MultilevelLayout(members=members, intra=intra,
+                            intra_rowsum=rowsum, deg_loc=deg_loc,
+                            sender_csr=sender_csr(g),
+                            agg_csr=part.segment_csr(),
+                            vertex_to_agg=part.vertex_to_agg,
+                            num_aggs=part.num_aggs)
+
+
+def ml_forces(coords, layout: MultilevelLayout, pull_vec,
+              params: MultilevelFAParams, *,
+              absolute: bool = False) -> torch.Tensor:
+    """Total per-vertex force of one refinement iteration
+    (forceatlas.hpp:390-475).  Repulsion takes per-pair differences for
+    ``repulsion="exact"`` and the gram form for every other name, as the
+    JAX package does (multilevel.py:211).
+
+    ``absolute`` (CPU tensors, plain versions) gives each element's
+    rounding scale instead: the sum of the magnitudes of its repulsion
+    (``aggregate_repulsion(absolute=True)``), attraction, pull and gravity
+    terms, against which the card's forces are held element by
+    element."""
+    eps = params.epsilon
+    deg_p1 = layout.deg_loc + 1.0
+    rep = aggregate_repulsion(coords, layout.members, deg_p1, params.repel,
+                              eps, exact=params.repulsion == "exact",
+                              absolute=absolute)
+    mag = torch.clamp(torch.sqrt(torch.sum(coords * coords, dim=1)), min=eps)
+    ext = pull_vec / mag[:, None]
+    grav = -(coords / mag[:, None]) * (params.gravity * deg_p1)[:, None]
+    if absolute:
+        csr = layout.intra
+        if csr.w is not None:
+            csr = dataclasses.replace(csr, w=csr.w.abs())
+        if params.linlog:
+            att = ES.linlog_plain(coords, csr, attract=abs(params.attract),
+                                  eps=eps, absolute=True)
+        else:
+            x_abs = coords.abs()
+            att = abs(params.attract) * (
+                ES.spmv_plain(x_abs, csr) + x_abs * ES.spmv_plain(
+                    torch.ones_like(coords[:, :1]), csr))
+        return rep + att + ext.abs() + grav.abs()
+    if params.linlog:
+        att = ES.linlog(coords, layout.intra, attract=params.attract,
+                        eps=eps)
+    else:
+        att = ES.attraction_spmv(coords, layout.intra, layout.intra_rowsum,
+                                 attract=params.attract)
+    return rep + att + ext + grav
+
+
+def ml_loop(x, layout: MultilevelLayout, pull_vec,
+            params: MultilevelFAParams, iterations: int) -> torch.Tensor:
+    """``iterations`` steps of ``ml_forces`` and the adaptive-speed update
+    with the multilevel swing clamp (forceatlas.hpp:477-537)."""
+    deg_p1 = layout.deg_loc + 1.0
+    fprev = torch.zeros_like(x)
+    for _ in range(iterations):
+        f = ml_forces(x, layout, pull_vec, params)
+        x = F.speed_update(x, f, fprev, deg_p1, ks=params.ks,
+                           ksmax=params.ksmax, tolerate=params.tolerate,
+                           swing_clamp_eps=params.epsilon)
+        fprev = f
+    return x
+
+
+def place_into_parents(x, layout: MultilevelLayout, coords_A, r_A,
+                       eps: float) -> torch.Tensor:
+    """Epilogue (forceatlas.hpp:539-570): centre each aggregate (its sum
+    over members in vertex order), scale by its max member norm (clamped
+    at eps; a max does not depend on order) and place into the parent
+    ball."""
+    v2a = layout.vertex_to_agg
+    sizes = (layout.agg_csr.indptr[1:] - layout.agg_csr.indptr[:-1]).to(
+        x.dtype)
+    mean = segment.segment_sum(x, layout.agg_csr) / torch.clamp(
+        sizes, min=1.0)[:, None]
+    centered = x - mean[v2a]
+    norms = torch.sqrt(torch.sum(centered * centered, dim=1))
+    mx = norms.new_zeros(layout.num_aggs).scatter_reduce(
+        0, v2a, norms, "amax", include_self=False)
+    mx = torch.clamp(mx, min=eps)
+    return coords_A[v2a] + (r_A[v2a] / mx[v2a])[:, None] * centered
+
+
+def force_atlas_multilevel(g: Graph, part: Partition, coords_A, r_A,
+                           dim: int, *, seed: int = 0, iterations: int = 100,
+                           params: MultilevelFAParams | None = None,
+                           layout: MultilevelLayout | None = None,
+                           coords0=None, device="cuda") -> torch.Tensor:
+    """Refine one level inside the parent balls on ``device`` (the graph,
+    partition and parents move there; the card by default, the CPU only
+    when asked for) (forceatlas.hpp:314-574; the embed driver runs 100
+    iterations, src/embed.cpp:793); returns [n, dim] in the graph's
+    dtype.
+
+    Members start at U(-1, 1)^dim from a generator seeded with ``seed``
+    (the reference re-randomizes at entry, :356-360), or at ``coords0``:
+    [n, dim] warm-start offsets in the local aggregate frame.  ``layout``
+    (``prepare_multilevel``, on ``device``) is built here when not
+    given."""
+    params = params or MultilevelFAParams()
+    g = g.to(resolve(device))
+    dev, dtype = g.device, g.dtype
+    part = part.to(dev)
+    if layout is None:
+        layout = prepare_multilevel(g, part, params)
+    coords_A = torch.as_tensor(coords_A).to(dev, dtype)
+    r_A = torch.as_tensor(r_A).to(dev, dtype)
+    pull_vec = external_pull(g, part, coords_A, pull=params.pull,
+                             eps=params.epsilon, csr=layout.sender_csr)
+    if coords0 is None:
+        gen = torch.Generator(device=dev).manual_seed(int(seed))
+        x = torch.rand((g.n, dim), generator=gen, dtype=dtype,
+                       device=dev) * 2.0 - 1.0
+    else:
+        x = torch.as_tensor(coords0).to(dev, dtype).contiguous()
+    x = ml_loop(x, layout, pull_vec, params, iterations)
+    return place_into_parents(x, layout, coords_A, r_A, params.epsilon)

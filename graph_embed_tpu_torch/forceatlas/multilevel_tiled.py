@@ -566,8 +566,10 @@ def refine_level_tiled(g: Graph, part: Partition, coords_A, r_A, dim: int,
     params = params or MultilevelFAParams()
     if params.linlog:
         raise NotImplementedError(
-            "linlog refinement needs the portable refinement, not ported "
-            "yet (ROADMAP queue 1, item 3)")
+            "the slot-space refinement folds attraction into its SpMV and "
+            "has no linlog term; refine linlog levels with the portable "
+            "refinement (forceatlas.multilevel.force_atlas_multilevel, "
+            "which embed takes for every linlog level)")
     dev = g.device
     if layout is None:
         layout = prepare_refine(g, part, params)

@@ -147,8 +147,10 @@ def refine_level_sharded(g: Graph, part: Partition, coords_A, r_A, dim: int,
     params = params or MultilevelFAParams()
     if params.linlog:
         raise NotImplementedError(
-            "linlog refinement needs the portable refinement, not ported "
-            "yet (ROADMAP queue 1, item 3)")
+            "the sharded refinement folds attraction into its SpMV and has "
+            "no linlog term; the reference's refine_level_sharded drops it "
+            "silently (reference fault 8, ROADMAP queue 3), the port "
+            "raises")
     dev = mesh.device
     g, part = g.to(dev), part.to(dev)
     if layout is None:

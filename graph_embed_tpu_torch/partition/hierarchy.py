@@ -1,6 +1,7 @@
-"""The multilevel hierarchy partitioner on the native C++ coarsener.
+"""Partition drivers on the native C++ coarsener: the multilevel
+hierarchy, single-level and numParts.
 
-Counterpart of graph_embed_tpu/partition/hierarchy.py:248-285 with
+Counterpart of graph_embed_tpu/partition/hierarchy.py:248-329 with
 ``backend="native"`` (the backend ``auto`` picks whenever the graph has a
 host COO, hierarchy.py:189-199).  The coarsener also emits the Galerkin
 chain A_{l+1} = P^T A P (hierarchy.py:202-245), so the embed pipeline needs
@@ -28,13 +29,11 @@ class HierarchyResult:
     coarse_graphs: list[Graph] | None = None
 
 
-def partition_hierarchy(g: Graph, coarsening_factor: float,
-                        params: PartitionParams | None = None,
-                        backend: str = "native",
-                        emit_graphs: bool = False) -> HierarchyResult:
-    """One level snapshot per crossing of ``coarsening_factor`` plus a
-    final one (partitioner.cpp:1550-1893).  Partitions and coarse graphs
-    land on ``g``'s device."""
+def _run_native(g: Graph, params: PartitionParams, backend: str, *,
+                coarsening_factor: float = 0.0, num_parts: int = 0,
+                emit_graphs: bool = False):
+    """The native coarsener on ``g``'s host COO (hierarchy.py:202-245):
+    (assignments, level_sizes, Q, Galerkin COOs or None)."""
     if backend == "device":
         raise NotImplementedError(
             "the device coarsener is not ported yet (ROADMAP queue 1, "
@@ -45,11 +44,10 @@ def partition_hierarchy(g: Graph, coarsening_factor: float,
         raise ValueError("the native coarsener needs the graph's host COO")
     from ..native import coarsen_lib
 
-    params = params or PartitionParams()
     s, r, w = g.to_coo_numpy()
-    assignments, level_sizes, Q, coo = coarsen_lib.coarsen_run(
+    return coarsen_lib.coarsen_run(
         g.n, s, r, w,
-        coarsening_factor=coarsening_factor,
+        coarsening_factor=coarsening_factor, num_parts=num_parts,
         matching_iterations=params.matching_iterations,
         positive_merging=params.positive_merging,
         stall_stop_threshold=params.stall_stop_threshold,
@@ -60,6 +58,19 @@ def partition_hierarchy(g: Graph, coarsening_factor: float,
         absorb_below=params.absorb_below if coarsening_factor > 0 else 0.0,
         force_coarsen_to=(params.force_coarsen_to
                           if coarsening_factor > 0 else 0),
+        emit_graphs=emit_graphs)
+
+
+def partition_hierarchy(g: Graph, coarsening_factor: float,
+                        params: PartitionParams | None = None,
+                        backend: str = "native",
+                        emit_graphs: bool = False) -> HierarchyResult:
+    """One level snapshot per crossing of ``coarsening_factor`` plus a
+    final one (partitioner.cpp:1550-1893).  Partitions and coarse graphs
+    land on ``g``'s device."""
+    params = params or PartitionParams()
+    assignments, level_sizes, Q, coo = _run_native(
+        g, params, backend, coarsening_factor=coarsening_factor,
         emit_graphs=emit_graphs)
     levels = [Partition.from_numpy(a, int(level_sizes[i + 1]),
                                    device=g.device)
@@ -79,3 +90,29 @@ def partition_hierarchy(g: Graph, coarsening_factor: float,
             print(f"level {i + 1}: {p.num_aggs} aggregates")
     return res
 
+
+def partition_single(g: Graph, params: PartitionParams | None = None,
+                     backend: str = "auto") -> Partition:
+    """Single-level production coarsener (partitioner.cpp:970-1266): the
+    merge loop run to stall, one vertex -> aggregate Partition on ``g``'s
+    device."""
+    params = params or PartitionParams()
+    assignments, level_sizes, Q, _ = _run_native(g, params, backend)
+    part = Partition.from_numpy(assignments[0], int(level_sizes[1]),
+                                device=g.device)
+    if params.printing:
+        print(f"modularity: {Q}")
+        print(f"aggregates: {part.num_aggs}")
+    return part
+
+
+def partition_num_parts(g: Graph, num_parts: int,
+                        params: PartitionParams | None = None,
+                        backend: str = "auto") -> Partition:
+    """numParts variant (partitioner.cpp:1272-1544): the merge loop also
+    halts once the live count reaches ``num_parts``."""
+    params = params or PartitionParams()
+    assignments, level_sizes, _, _ = _run_native(g, params, backend,
+                                                 num_parts=num_parts)
+    return Partition.from_numpy(assignments[0], int(level_sizes[1]),
+                                device=g.device)

@@ -1,6 +1,8 @@
 """Aggregation operator: the vertex -> aggregate assignment that stands for
 the reference's CSR ``P^T`` (src/partitioner.cpp:29-65).  Counterpart of
-graph_embed_tpu/partition/interpolation.py."""
+graph_embed_tpu/partition/interpolation.py: ``P^T x`` is a segment sum
+(``restrict``, row-owned through ``ops.segment``), ``P y`` a gather
+(``prolong``)."""
 
 from __future__ import annotations
 
@@ -8,6 +10,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from ..ops import segment
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,6 +54,39 @@ class Partition:
     def agg_sizes(self) -> torch.Tensor:
         """[num_aggs] member count per aggregate."""
         return torch.bincount(self.vertex_to_agg, minlength=self.num_aggs)
+
+    def members_csr(self) -> tuple[np.ndarray, np.ndarray]:
+        """(indptr [num_aggs+1], order [n]), host int64: the rows of P^T,
+        each aggregate's members sorted by vertex id (interpolationMatrix's
+        member order, src/partitioner.cpp:54-62)."""
+        v2a = self.vertex_to_agg_numpy()
+        order = np.argsort(v2a, kind="stable")
+        counts = np.bincount(v2a, minlength=self.num_aggs)
+        indptr = np.concatenate([[0], np.cumsum(counts)])
+        return indptr.astype(np.int64), order.astype(np.int64)
+
+    def segment_csr(self):
+        """The members-by-aggregate segment CSR on the partition's device
+        (``ops.segment``), in vertex order."""
+        return segment.segment_csr(self.vertex_to_agg_numpy(), self.num_aggs,
+                                   device=self.device)
+
+    def restrict(self, x: torch.Tensor) -> torch.Tensor:
+        """P^T x: vertex values summed into their aggregates, each over its
+        members in vertex order (kernel A on the card)."""
+        return segment.segment_sum(x, self.segment_csr())
+
+    def prolong(self, y: torch.Tensor) -> torch.Tensor:
+        """P y: aggregate values copied to their members."""
+        return y[self.vertex_to_agg.to(y.device)]
+
+
+def partition_from_labels(labels, *, device="cpu") -> Partition:
+    """A Partition from arbitrary (possibly sparse) labels, densely
+    re-ranked on the host: one aggregate per distinct label."""
+    uniq, dense = np.unique(np.asarray(labels), return_inverse=True)
+    return Partition.from_numpy(dense.ravel().astype(np.int32), int(uniq.size),
+                                device=device)
 
 
 def compose(parts: list[Partition], upto: int | None = None) -> Partition:

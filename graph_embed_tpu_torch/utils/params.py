@@ -11,8 +11,9 @@ import dataclasses
 @dataclasses.dataclass(frozen=True)
 class ForceAtlasParams:
     """ForceAtlas2 knobs.  ``repulsion``: 'exact' (per-pair differences),
-    'gram' (|xi-xj|^2 from the gram identity, full-f32 matmuls) or
-    'sampled' (unbiased negative-sampling estimator).  ``x_precision``
+    'gram' (|xi-xj|^2 from the gram identity, full-f32 matmuls),
+    'sampled' (unbiased negative-sampling estimator) or 'centroids'
+    (exact within a grouping, group monopoles beyond it).  ``x_precision``
     'bf16' gathers x rounded to bf16 in the SpMVs where the reference's
     dispatch would (kernel A's bf16x mode); elsewhere it has no effect."""
 

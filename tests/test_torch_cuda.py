@@ -15,6 +15,7 @@ import torch
 
 import graph_embed_tpu_torch as gp
 from graph_embed_tpu_torch import from_edges
+from graph_embed_tpu_torch.forceatlas import multilevel as PML
 from graph_embed_tpu_torch.forceatlas import multilevel_tiled as MT
 from graph_embed_tpu_torch.forceatlas import tiled as TL
 from graph_embed_tpu_torch.graph import synth
@@ -161,6 +162,67 @@ def test_refine_forces_on_card_match_cpu(rng, dev):
              + params.gravity * ((layout_cpu.deg_loc + 1.0)
                                  / mag)[:, None] * x.abs())
     _assert_within_scale(outs[1], outs[0], scale)
+
+
+def _portable_level(rng, n=3000):
+    """A weighted level on the CPU whose aggregates span the size classes
+    8..512, for the portable refinement."""
+    s = rng.integers(0, n, 3 * n)
+    r = rng.integers(0, n, 3 * n)
+    keep = s != r
+    g = from_edges(s[keep], r[keep], rng.uniform(0.5, 2.0, keep.sum()),
+                   n=n, symmetrize=True)
+    sizes = np.repeat(2 ** np.arange(3, 10), 2)
+    v2a = np.repeat(np.arange(sizes.size), sizes)[:n]
+    v2a = np.concatenate([v2a, sizes.size + np.arange(n - v2a.size) % 40])
+    return g, Partition.from_numpy(v2a, int(v2a.max()) + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("repulsion,linlog,kernel", [
+    ("exact", False, "edge_spmm[exact]"), ("gram", False, "edge_spmm[exact]"),
+    ("exact", True, "edge_linlog")])
+def test_portable_ml_forces_on_card_match_cpu(rng, dev, repulsion, linlog,
+                                              kernel):
+    """One portable force evaluation (member tables; kernel A's exact mode,
+    or kernel E under linlog) on the same coordinates and pull: the card
+    against the plain versions on the CPU, each element within 1e-5 of
+    its rounding scale (``ml_forces(absolute=True)``: the sum of |terms|,
+    and for the gram form the identity's cancellation)."""
+    g, part = _portable_level(rng)
+    params = MultilevelFAParams(repulsion=repulsion, linlog=linlog)
+    x = torch.from_numpy(rng.uniform(-1, 1, (g.n, 3)).astype(np.float32))
+    cA = torch.from_numpy(rng.uniform(-1, 1, (part.num_aggs, 3)).astype(
+        np.float32))
+    lay_cpu = PML.prepare_multilevel(g, part, params)
+    pull = PML.external_pull(g, part, cA, pull=params.pull,
+                             eps=params.epsilon)
+    want = PML.ml_forces(x, lay_cpu, pull, params)
+    scale = PML.ml_forces(x, lay_cpu, pull, params, absolute=True)
+    lay = PML.prepare_multilevel(g.to(dev), part.to(dev), params)
+    before = cuda.LAUNCHES[kernel]
+    got = PML.ml_forces(x.to(dev), lay, pull.to(dev), params)
+    assert cuda.LAUNCHES[kernel] == before + 1
+    _assert_within_scale(got.cpu(), want, scale)
+    assert torch.equal(PML.ml_forces(x.to(dev), lay, pull.to(dev), params),
+                       got)
+
+
+@pytest.mark.cuda
+def test_portable_refinement_on_card_packs_and_repeats(rng, dev):
+    """force_atlas_multilevel on the card: every vertex inside its parent
+    ball, and two runs from one seed torch.equal."""
+    g, part = _portable_level(rng)
+    cA = torch.from_numpy(rng.uniform(-5, 5, (part.num_aggs, 3)).astype(
+        np.float32)).to(dev)
+    rA = torch.full((part.num_aggs,), 0.25, device=dev)
+    g, part = g.to(dev), part.to(dev)
+    runs = [gp.force_atlas_multilevel(g, part, cA, rA, 3, seed=2,
+                                      iterations=10, device=dev)
+            for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
+    dist = torch.linalg.norm(runs[0] - cA[part.vertex_to_agg], dim=1)
+    assert bool((dist <= 0.25 + 1e-5).all())
 
 
 @pytest.mark.cuda

@@ -220,14 +220,28 @@ def test_embed_graph_packs_levels_into_parent_balls():
 
 
 def test_unported_options_raise():
+    """Only the replicated mesh design and linlog refinement with a mesh
+    raise (the latter names reference fault 8: the reference's sharded
+    refinement drops the log term); both before any level runs.  The
+    slot-space and sharded refinements refuse linlog themselves."""
     g = psynth.ring_of_cliques(3, 4)
+    from graph_embed_tpu_torch.forceatlas import multilevel_tiled as MT
+    from graph_embed_tpu_torch.parallel import sharded_ml as SM
     from graph_embed_tpu_torch.parallel.mesh import make_mesh
 
-    for kw in ({"store": object()}, {"final_block": object()},
-               {"mesh": make_mesh(2, device="cpu")},
-               {"refine_backend": "portable"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    mesh = make_mesh(2, device="cpu")
+    linlog = gp.MultilevelFAParams(linlog=True)
+    for kw, text in (({"mesh": mesh}, "ROADMAP queue 1, item 6"),
+                     ({"mesh": mesh, "sharding": "halo",
+                       "refine_params": linlog}, "reference fault 8")):
+        with pytest.raises(NotImplementedError, match=text):
             gp.embed_graph(g, 2, device="cpu", **kw)
+    part = gp.partition_hierarchy(g, 0.1).levels[0]
+    cA, rA = torch.zeros((part.num_aggs, 2)), torch.ones(part.num_aggs)
+    with pytest.raises(NotImplementedError, match="portable refinement"):
+        MT.refine_level_tiled(g, part, cA, rA, 2, params=linlog)
+    with pytest.raises(NotImplementedError, match="reference fault 8"):
+        SM.refine_level_sharded(g, part, cA, rA, 2, mesh=mesh, params=linlog)
     # x_precision has no effect on the flat base case, as in the reference
     runs = [gp.force_atlas(g, 2, params=gp.ForceAtlasParams(x_precision=xp),
                            iterations=5, device="cpu")

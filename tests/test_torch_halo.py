@@ -397,7 +397,9 @@ def test_native_sources_live_in_the_port():
 
 
 @pytest.mark.parametrize("entry", ["force_atlas", "force_atlas_tiled",
-                                   "halo_force_atlas", "make_mesh"])
+                                   "halo_force_atlas", "make_mesh",
+                                   "force_atlas_multilevel",
+                                   "embed_via_minimization"])
 def test_entry_points_default_to_the_card(entry):
     """Without ``device`` the entry points run on CUDA; on a machine
     without a card they raise instead of running on the CPU."""
@@ -411,6 +413,11 @@ def test_entry_points_default_to_the_card(entry):
         "halo_force_atlas": lambda: PH.halo_force_atlas(
             g, 2, mesh=make_mesh(2, device=CPU), iterations=2),
         "make_mesh": lambda: make_mesh(2),
+        "force_atlas_multilevel": lambda: gp.force_atlas_multilevel(
+            g, interop.partition(np.zeros(g.n, np.int32), 1),
+            torch.zeros((1, 2)), torch.ones(1), 2, iterations=2),
+        "embed_via_minimization": lambda: gp.embed_via_minimization(
+            g, 2, iterations=2),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
