@@ -102,10 +102,28 @@ Phases, one JSON line each:
             embed_via over any_to_multilevel(embed_via_minimization) on
             mesh3d(5) (with their seconds): torch.equal;
   cli       ``python -m graph_embed_tpu_torch.cli embed`` on a small
-            ring-of-cliques file.
+            ring-of-cliques file;
+  device partition  mesh3d(128) on the card without its host COO: ``auto``
+            picks the device coarsener, whose hierarchy must equal the
+            setup's native one at every level (torch.equal), and the
+            device Galerkin chain the native emitted chain; the same
+            hierarchy check on the unit-weight rmat(20, 8) (absorb
+            rounds); the seconds of each beside the native hierarchy's;
+            then embed_graph on the card-only mesh3d(128) (device
+            coarsener, build_galerkin_chain, embed), its stress within 1%
+            of the main embed's;
+  run-tests ``cli run-tests`` on synth:planted:200:500:0.05:0.0001 with
+            -communities -heuristics: one record, its two modularities
+            within 1e-5 of float64 numpy on the same partitions;
+  embedder  ``cli embedder`` on mesh3d(128)'s pairs as an adjlist (the
+            native parser; coords.temp finite, part.temp reading back to
+            the printed level sizes), and on the ring of cliques with a
+            plot.html of one point per vertex.
 Each path (main, entry, flat per graph, linlog, lj per plan, bf16 embed,
-portable embed, linlog embed, halo per graph, the sharded embed) is driven
-with the launch counts set to 0 just before it and read just after.
+portable embed, linlog embed, halo per graph, the sharded embed, the
+device hierarchy, the device chain, the card-only embed) is driven with the
+launch counts set to 0 just before it and read just after; the CLI's
+subprocesses report their own.
 Then the nvidia-smi line, the kernel summary as one JSON object (per
 kernel: launches on its path, error, ms on the card alone, host_ms to
 enqueue it, and plain ms as measured, the
@@ -311,6 +329,10 @@ def phase_env(torch) -> str:
 
 
 def phase_build() -> None:
+    """The kernels (nvcc) and the native libraries (g++: the coarsener,
+    the greedy partitioner, the edge-list parser), each from the
+    checkout's sources."""
+    from graph_embed_tpu_torch.native import coarsen_lib, fastload, greedy_lib
     from graph_embed_tpu_torch.ops import cuda
 
     t0 = time.perf_counter()
@@ -318,7 +340,11 @@ def phase_build() -> None:
     cuda.library()
     usage = [ln.strip() for ln in report.splitlines()
              if "registers" in ln or "spill" in ln]
-    emit(phase="build", seconds=time.perf_counter() - t0, ptxas=usage)
+    t1 = time.perf_counter()
+    for lib in (coarsen_lib, fastload, greedy_lib):
+        lib._lib()
+    emit(phase="build", seconds=t1 - t0, ptxas=usage,
+         native_seconds=time.perf_counter() - t1)
 
 
 def phase_kernels(torch, g, res, dev) -> dict:
@@ -1061,6 +1087,7 @@ def reference_portable(torch, dev) -> None:
 
 def phase_main(torch, g, dev, coarsening: float) -> dict:
     import graph_embed_tpu_torch as gp
+    from graph_embed_tpu_torch.harness.runtests import layout_stress
     from graph_embed_tpu_torch.ops import cuda
 
     excess = {}
@@ -1099,24 +1126,6 @@ def phase_main(torch, g, dev, coarsening: float) -> dict:
     return launches, wall, coords
 
 
-def layout_stress(g, coords) -> float:
-    """Edge stress of a layout at its best global scale, min_a mean over
-    edges (a |x_i - x_j| - 1)^2 (the JAX package's
-    harness/runtests.py:235-250, in numpy): the quality record beside the
-    speed."""
-    import numpy as np
-
-    s, r, _ = g.to_coo_numpy()
-    x = coords.detach().cpu().double().numpy()
-    keep = s < r
-    d = np.linalg.norm(x[s[keep]] - x[r[keep]], axis=1)
-    denom = float((d * d).sum())
-    if denom == 0:
-        return float("inf")
-    a = float(d.sum()) / denom
-    return float(((a * d - 1.0) ** 2).mean())
-
-
 def level0_refine_ms(records: list) -> float:
     """Level 0's refine span over REFINE_ITERATIONS, in ms."""
     level0 = [r for r in records if r["phase"] == "refine"
@@ -1151,6 +1160,7 @@ def phase_portable_embeds(torch, g, res, dev, main_coords) -> dict:
     against their plain versions at these embeds' shapes
     (``portable_holds``, whose worst errors it returns)."""
     import graph_embed_tpu_torch as gp
+    from graph_embed_tpu_torch.harness.runtests import layout_stress
     from graph_embed_tpu_torch.ops import cuda
 
     class CountingLogger(gp.MetricsLogger):
@@ -1754,6 +1764,286 @@ def phase_cli(dev) -> None:
          seconds=time.perf_counter() - t0)
 
 
+def hierarchies_equal(torch, a, b) -> bool:
+    return a.level_sizes == b.level_sizes and all(
+        torch.equal(x.vertex_to_agg.to(y.device), y.vertex_to_agg)
+        for x, y in zip(a.levels, b.levels))
+
+
+def first_divergence(torch, a, b):
+    """The first level at which two hierarchies differ, with the number of
+    vertices whose aggregate differs there."""
+    for lvl, (x, y) in enumerate(zip(a.levels, b.levels)):
+        if x.num_aggs != y.num_aggs or not torch.equal(
+                x.vertex_to_agg.to(y.device), y.vertex_to_agg):
+            diff = (int((x.vertex_to_agg.cpu() != y.vertex_to_agg.cpu()).sum())
+                    if x.n == y.n else None)
+            return {"level": lvl, "aggs": [x.num_aggs, y.num_aggs],
+                    "vertices_differing": diff}
+    return {"level": min(len(a.levels), len(b.levels)),
+            "sizes": [a.level_sizes, b.level_sizes]}
+
+
+def phase_device_partition(torch, g, res, native_s: float, flat: dict, dev,
+                           main_coords) -> None:
+    """The device coarsener at full width.  mesh3d(128) on the card with
+    its host COO dropped: ``auto`` must pick the device backend, and the
+    hierarchy must equal the setup's native one level by level
+    (torch.equal), the device Galerkin chain the native emitted chain
+    (indptr, indices and weights torch.equal: unit-weight sums are
+    integers below 2^24).  The same on the flat phase's unit-weight
+    rmat(20, 8), whose hubs take absorb rounds.  Then embed_graph on the
+    card-only mesh3d(128): the device coarsener, build_galerkin_chain, the
+    embed; its layout stress within 1% of the main phase's.  Each path is
+    driven with the launch counts set to 0 just before it."""
+    import dataclasses
+
+    import graph_embed_tpu_torch as gp
+    from graph_embed_tpu_torch.harness.runtests import layout_stress
+    from graph_embed_tpu_torch.ops import cuda
+    from graph_embed_tpu_torch.partition import hierarchy as H
+
+    gd = dataclasses.replace(g.to(dev), host_coo=None)
+    require(H._pick_backend("auto", gd) == "device",
+            "auto picks the device coarsener for a card-only graph")
+    cuda.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    resd = gp.partition_hierarchy(gd, 0.1)
+    torch.cuda.synchronize()
+    dev_s = time.perf_counter() - t0
+    launches = dict(cuda.LAUNCHES)
+    require(launches.get("edge_spmm[unit]", 0) > 0,
+            "kernel A launched by the device coarsener")
+    require(hierarchies_equal(torch, resd, res),
+            f"device hierarchy of mesh3d({MESH_SIDE}) equals the native one "
+            f"({first_divergence(torch, resd, res)})")
+    cuda.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    chain = gp.build_galerkin_chain(gd, resd.levels, backend="device")
+    torch.cuda.synchronize()
+    chain_s = time.perf_counter() - t0
+    chain_launches = dict(cuda.LAUNCHES)
+    require(chain_launches.get("edge_spmm[unit]", 0) > 0,
+            "kernel A launched by the device Galerkin chain")
+    for lvl, (a, b) in enumerate(zip(chain[1:], res.coarse_graphs)):
+        b = b.to(dev)
+        require(torch.equal(a.indptr, b.indptr)
+                and torch.equal(a.receivers, b.receivers)
+                and torch.equal(a.weights, b.weights),
+                f"device Galerkin level {lvl + 1} equals the native chain")
+    emit(phase="device partition", graph=f"mesh3d({MESH_SIDE})",
+         level_sizes=resd.level_sizes, device_hierarchy_seconds=dev_s,
+         device_chain_seconds=chain_s, native_hierarchy_seconds=native_s,
+         device_Q=resd.modularity, native_Q=res.modularity,
+         launches=launches, chain_launches=chain_launches, equal=True)
+    del chain
+
+    rmat = flat["rmat(20,8)"][0]
+    rhost = rmat.to("cpu")
+    t0 = time.perf_counter()
+    rn = gp.partition_hierarchy(rhost, 0.1)
+    rn_s = time.perf_counter() - t0
+    cuda.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    rd = gp.partition_hierarchy(dataclasses.replace(rmat, host_coo=None),
+                                0.1)
+    torch.cuda.synchronize()
+    rd_s = time.perf_counter() - t0
+    rlaunches = dict(cuda.LAUNCHES)
+    same = hierarchies_equal(torch, rd, rn)
+    emit(phase="device partition", graph="rmat(20, 8, seed=1) unit weights",
+         n=rmat.n, stored_entries=rmat.num_edges,
+         level_sizes=rd.level_sizes, native_level_sizes=rn.level_sizes,
+         device_hierarchy_seconds=rd_s, native_hierarchy_seconds=rn_s,
+         device_Q=rd.modularity, native_Q=rn.modularity, launches=rlaunches,
+         equal=same, divergence=None if same else first_divergence(
+             torch, rd, rn))
+    require(same, "device hierarchy of rmat(20, 8) equals the native one")
+
+    class CountingLogger(gp.MetricsLogger):
+        def log(self, **record):
+            record["launches"] = dict(cuda.LAUNCHES)
+            return super().log(**record)
+
+    metrics = CountingLogger()
+    cuda.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    coords, eres = gp.embed_graph(gd, 3, device=dev, coarsening_factor=0.1,
+                                  metrics=metrics)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    elaunches = dict(cuda.LAUNCHES)
+    for name in ("edge_spmm[unit]", "edge_spmm[weighted]",
+                 "bucket_repulsion"):
+        require(elaunches.get(name, 0) > 0,
+                f"{name} launched by the card-only embed")
+    require(tuple(coords.shape) == (g.n, 3)
+            and bool(torch.isfinite(coords).all()),
+            "card-only embed: finite [n, 3]")
+    stress = layout_stress(g, coords)
+    main_stress = layout_stress(g, main_coords)
+    emit(phase="device partition", path="embed_graph card-only "
+         f"mesh3d({MESH_SIDE})", seconds=wall, level_sizes=eres.level_sizes,
+         spans=[{k: v for k, v in r.items() if k != "launches"}
+                for r in metrics.records],
+         launches=elaunches, layout_stress=stress,
+         main_layout_stress=main_stress,
+         coords_equal_main=bool(torch.equal(coords, main_coords)))
+    require(abs(stress - main_stress) <= 0.01 * main_stress,
+            "card-only embed's stress within 1% of the main embed's")
+
+
+def modularity_f64(s, r, w, v2a) -> float:
+    """Q = sum_A (d_A/T - alpha_A^2) in float64 numpy
+    (src/partitioner.cpp:69-114)."""
+    import numpy as np
+
+    w = np.asarray(w, np.float64)
+    a, b = v2a[s], v2a[r]
+    m = int(v2a.max()) + 1
+    intra = a == b
+    d = np.bincount(a, weights=np.where(intra, w, 0.0), minlength=m)
+    tot = np.bincount(a, weights=w, minlength=m)
+    T = w.sum()
+    return float((d / T - (tot / T) ** 2).sum())
+
+
+def launches_of(stderr: str) -> dict:
+    lines = [ln for ln in stderr.splitlines()
+             if ln.startswith("kernel launches: ")]
+    require(len(lines) == 1, "the CLI reports its kernel launches")
+    return json.loads(lines[0][len("kernel launches: "):])
+
+
+RUN_TESTS_SPEC = "synth:planted:200:500:0.05:0.0001"
+
+
+def phase_run_tests(dev) -> None:
+    """``cli run-tests`` on the planted graph (100,000 vertices, 3.43M
+    stored entries) with -communities -heuristics on the card: one record;
+    its modularity and variant_modularity within 1e-5 of float64 numpy on
+    the same partitions (partition_base and partition_test are
+    deterministic host code, rerun here)."""
+    import graph_embed_tpu_torch as gp
+    from graph_embed_tpu_torch.graph import synth
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "graph_embed_tpu_torch.cli", "run-tests",
+         RUN_TESTS_SPEC, "-communities", "-heuristics", "-device", str(dev)],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    require(proc.returncode == 0, "cli run-tests exits 0: "
+            + proc.stderr[-2000:])
+    records = [json.loads(ln) for ln in proc.stdout.splitlines()
+               if ln.startswith("{")]
+    require(len(records) == 1, "cli run-tests prints one record")
+    rec = records[0]
+    launches = launches_of(proc.stderr)
+    require(launches.get("edge_spmm[unit]", 0) > 0,
+            "run-tests' modularity evaluations launch kernel A")
+    args = RUN_TESTS_SPEC.split(":")[2:]
+    g, _ = synth.planted_partition(int(args[0]), int(args[1]),
+                                   p_in=float(args[2]), p_out=float(args[3]))
+    s, r, w = g.to_coo_numpy()
+    q = {}
+    for key, part in (("modularity", gp.partition_base(g, 0.999)),
+                      ("variant_modularity", gp.partition_test(g, 0.999))):
+        q[key] = modularity_f64(s, r, w, part.vertex_to_agg_numpy())
+        require(abs(rec[key] - q[key]) <= 1e-5,
+                f"run-tests {key} {rec[key]} within 1e-5 of float64 "
+                f"{q[key]}")
+    emit(phase="run-tests", graph=RUN_TESTS_SPEC, n=rec["n"],
+         stored_entries=rec["edges"], seconds=wall,
+         partition_seconds=rec["partition_seconds"],
+         variant_seconds=rec["variant_seconds"],
+         aggregates=rec["aggregates"], modularity=rec["modularity"],
+         modularity_f64=q["modularity"],
+         variant_modularity=rec["variant_modularity"],
+         variant_modularity_f64=q["variant_modularity"],
+         ground_truth=rec.get("ground_truth_similarity"), launches=launches)
+
+
+def run_embedder(src: str, out: str, plot: bool, dev):
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "graph_embed_tpu_torch.cli", "embedder",
+         "-f", src, "-outdir", out, "-plot", "true" if plot else "false",
+         "-device", str(dev)],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    require(proc.returncode == 0, "cli embedder exits 0: "
+            + proc.stderr[-2000:])
+    lines = proc.stdout.splitlines()
+    require(any("(native parser)" in ln for ln in lines),
+            "the embedder read its file with the native parser")
+
+    def seconds(prefix):
+        ln = [x for x in lines if x.startswith(prefix)][0]
+        return float(ln.split("in time ")[1].split("s")[0])
+
+    sizes = [int(x) for x in
+             lines[lines.index([x for x in lines
+                                if x.startswith("partitioned!")][0]) + 1]
+             .split()]
+    times = {k: seconds(p) for k, p in (
+        ("read_seconds", "read in"), ("partition_seconds", "partitioned!"),
+        ("embed_seconds", "embedded!"), ("write_seconds", "written"))}
+    return wall, sizes, times, launches_of(proc.stderr)
+
+
+def phase_embedder(g, dev) -> None:
+    """``cli embedder`` on mesh3d(128)'s upper-triangle pairs as an
+    adjlist (-plot false): exit 0, the native parser, coords.temp with one
+    finite row per vertex, a part.temp that reads back to the printed level
+    sizes; then on the cli phase's ring of cliques with -plot true, a
+    plot.html whose embedded JSON has one point per vertex."""
+    import numpy as np
+
+    from graph_embed_tpu_torch.viz import _read_multilevel_partition
+
+    work = os.path.join(ROOT, "graph_embed_tpu_torch", "_build", "smoke")
+    os.makedirs(work, exist_ok=True)
+    s, r, _ = g.to_coo_numpy()
+    up = s < r
+    src = os.path.join(work, "mesh.adjlist")
+    t0 = time.perf_counter()
+    with open(src, "w") as f:
+        f.writelines(map("{} {}\n".format, s[up].tolist(), r[up].tolist()))
+    write_s = time.perf_counter() - t0
+    out = os.path.join(work, "embedder_mesh")
+    wall, sizes, times, launches = run_embedder(src, out, False, dev)
+    for name in ("edge_spmm[unit]", "edge_spmm[weighted]",
+                 "bucket_repulsion"):
+        require(launches.get(name, 0) > 0, f"{name} launched by embedder")
+    require(sizes[0] == g.n, "embedder keeps the whole connected mesh")
+    with open(os.path.join(out, "coords.temp")) as f:
+        coords = np.array(f.read().split(), dtype=np.float64)
+    require(coords.size == 3 * g.n and bool(np.isfinite(coords).all()),
+            f"coords.temp holds {g.n} finite rows of 3")
+    t0 = time.perf_counter()
+    back = _read_multilevel_partition(os.path.join(out, "part.temp"))
+    read_part_s = time.perf_counter() - t0
+    require([len(a) for a in back] == sizes[:-1]
+            and [int(a.max()) + 1 for a in back] == sizes[1:],
+            "part.temp reads back to the printed level sizes")
+    emit(phase="embedder", graph=f"mesh3d({MESH_SIDE})", n=g.n,
+         adjlist_lines=int(up.sum()), adjlist_write_seconds=write_s,
+         seconds=wall, level_sizes=sizes, part_read_seconds=read_part_s,
+         launches=launches, **times)
+
+    ring = os.path.join(work, "ring.txt")
+    out = os.path.join(work, "embedder_ring")
+    wall, sizes, times, launches = run_embedder(ring, out, True, dev)
+    with open(os.path.join(out, "plot.html")) as f:
+        html = f.read()
+    verts = json.loads(html.split("const V=")[1].split(", E=")[0])
+    require(len(verts) == sizes[0], "plot.html has one point per vertex")
+    emit(phase="embedder", graph="ring of cliques (cli phase)", n=sizes[0],
+         seconds=wall, level_sizes=sizes, plot_points=len(verts),
+         launches=launches, **times)
+
+
 def main() -> int:
     import torch
 
@@ -1771,10 +2061,12 @@ def main() -> int:
 
     t0 = time.perf_counter()
     g = synth.mesh3d(MESH_SIDE)
+    t1 = time.perf_counter()
     res = gp.partition_hierarchy(g, 0.1, emit_graphs=True)
+    native_s = time.perf_counter() - t1
     emit(phase="setup", graph=f"mesh3d({MESH_SIDE})", n=g.n,
          stored_entries=g.num_edges, level_sizes=res.level_sizes,
-         seconds=time.perf_counter() - t0)
+         seconds=time.perf_counter() - t0, native_hierarchy_seconds=native_s)
     flat = setup_flat(dev, g)
     lj = setup_lj(dev)
     kernels, slots = phase_kernels(torch, g, res, dev)
@@ -1801,6 +2093,9 @@ def main() -> int:
     phase_sharded_embed(torch, g, res, dev)
     phase_determinism(torch, flat, lj, dev)
     phase_cli(dev)
+    phase_device_partition(torch, g, res, native_s, flat, dev, main_coords)
+    phase_run_tests(dev)
+    phase_embedder(g, dev)
     mesh_path = flat_launches[f"mesh3d({MESH_SIDE})"]
     rmat_path = flat_launches["rmat(20,8)"]
     linlog_path = flat_launches["rmat(20,8) linlog"]

@@ -32,11 +32,13 @@ from ..forceatlas.multilevel_tiled import prepare_refine, refine_level_tiled
 from ..graph.csr import Graph
 from ..graph.reorder import apply_order, partition_order
 from ..ops import segment
+from ..ops.spgemm import coarsen_graph, coarsen_graph_device
 from ..parallel.halo import halo_force_atlas
 from ..parallel.sharded_ml import (prepare_refine_sharded,
                                    refine_level_sharded)
 from ..partition.hierarchy import partition_hierarchy
 from ..partition.interpolation import Partition
+from ..utils.device import resolve
 from ..utils.params import ForceAtlasParams, MultilevelFAParams
 from ..utils.timing import MetricsLogger
 from .radii import radii_inner, radii_top_level, renormalize_into_parents
@@ -94,7 +96,7 @@ def _level_seeds(seed: int, k: int) -> dict[int, int]:
 
 
 def embed(graphs: list[Graph], parts: list[Partition], dim: int = 3, *,
-          device, seed: int = 0,
+          device="cuda", seed: int = 0,
           base_params: ForceAtlasParams | None = None,
           refine_params: MultilevelFAParams | None = None,
           base_iterations: int | None = None,
@@ -168,7 +170,7 @@ def embed(graphs: list[Graph], parts: list[Partition], dim: int = 3, *,
             "log term (reference fault 8, ROADMAP queue 3), and the port "
             "does not copy it")
     validate_hierarchy(graphs, parts)
-    device = torch.device(device)
+    device = resolve(device)
     if mesh is not None and mesh.device != device:
         raise ValueError(f"the mesh lives on {mesh.device}, the embed runs "
                          f"on {device}")
@@ -288,17 +290,45 @@ def _halo_base_case(g: Graph, dim: int, mesh, params: ForceAtlasParams,
     return out[torch.from_numpy(inv).to(out.device)]
 
 
-def embed_graph(g: Graph, dim: int = 3, *, device,
+def build_galerkin_chain(g: Graph, parts: list[Partition], *,
+                         backend: str = "host") -> list[Graph]:
+    """[A_0 ... A_k] by repeated P^T A P (examples/embed.cpp:95-98;
+    driver.py:331-356 of the JAX package).  ``backend="host"`` builds each
+    level on the host and keeps its host COO (what the embed's layout prep
+    reads); ``backend="device"`` keeps the chain on ``g``'s device
+    (``ops.spgemm.coarsen_graph_device``)."""
+    graphs = [g]
+    for p in parts:
+        if backend == "device":
+            graphs.append(coarsen_graph_device(graphs[-1], p.vertex_to_agg,
+                                               p.num_aggs))
+        elif backend == "host":
+            graphs.append(coarsen_graph(graphs[-1], p.vertex_to_agg_numpy(),
+                                        p.num_aggs))
+        else:
+            raise ValueError(f"unknown backend {backend!r}")
+    return graphs
+
+
+def embed_graph(g: Graph, dim: int = 3, *, device="cuda",
                 coarsening_factor: float = 0.1,
                 metrics: MetricsLogger | None = None, **embed_kw):
-    """Partition with the Galerkin chain emitted, then the multilevel
-    embed (the examples/embed.cpp:93-100 pipeline as one call).  Returns
-    (coords on ``device``, HierarchyResult)."""
-    device = torch.device(device)
+    """Partition, Galerkin chain, multilevel embed (the
+    examples/embed.cpp:93-100 pipeline as one call).  The hierarchy takes
+    the native coarsener, which emits the chain, when ``g`` has a host COO,
+    and the device coarsener otherwise; the chain then comes from
+    ``build_galerkin_chain``, as in the reference.  Returns (coords on
+    ``device``, HierarchyResult)."""
+    device = resolve(device)
     g = g.to(device)
     metrics = metrics or MetricsLogger()
     with metrics.span("partition", device, n=g.n):
         res = partition_hierarchy(g, coarsening_factor, emit_graphs=True)
-    coords = embed([g] + res.coarse_graphs, res.levels, dim, device=device,
-                   metrics=metrics, **embed_kw)
+    if res.coarse_graphs is not None:
+        graphs = [g] + res.coarse_graphs
+    else:
+        with metrics.span("galerkin", device, levels=len(res.levels)):
+            graphs = build_galerkin_chain(g, res.levels)
+    coords = embed(graphs, res.levels, dim, device=device, metrics=metrics,
+                   **embed_kw)
     return coords, res

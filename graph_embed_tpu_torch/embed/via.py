@@ -22,6 +22,7 @@ import torch
 
 from ..graph.csr import Graph, from_edges
 from ..partition.interpolation import Partition
+from ..utils.device import resolve
 from ..utils.params import ForceAtlasParams, MultilevelFAParams
 
 
@@ -67,7 +68,7 @@ def any_to_multilevel(flat_embedder):
 
 
 def embed_via(graphs: list[Graph], parts: list[Partition], dim: int,
-              embedder_block, *, device, seed: int = 0,
+              embedder_block, *, device="cuda", seed: int = 0,
               base_params: ForceAtlasParams | None = None,
               refine_params: MultilevelFAParams | None = None,
               base_iterations: int | None = None,
@@ -79,6 +80,7 @@ def embed_via(graphs: list[Graph], parts: list[Partition], dim: int,
     from .driver import embed, validate_hierarchy
 
     validate_hierarchy(graphs, parts)
+    device = resolve(device)
     if not parts:
         g = graphs[0].to(device)
         part = Partition.from_numpy(np.zeros(g.n, np.int32), 1,

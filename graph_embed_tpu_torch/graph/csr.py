@@ -20,6 +20,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..ops import segment
+
 
 @dataclasses.dataclass(frozen=True)
 class Graph:
@@ -66,6 +68,29 @@ class Graph:
             return self.host_coo
         return (self.senders.cpu().numpy(), self.receivers.cpu().numpy(),
                 self.weights.cpu().numpy())
+
+    def row_counts(self) -> torch.Tensor:
+        """[n] number of stored entries per row (unweighted degree)."""
+        return (self.indptr[1:] - self.indptr[:-1]).to(self.dtype)
+
+    def row_sums(self) -> torch.Tensor:
+        """[n] weighted degree, the row sum incl. the diagonal
+        (forceatlas.hpp:127-135), on the graph's device: each row's entries
+        added in their stored order (``ops.segment``, kernel A on the
+        card), so the result does not depend on atomics."""
+        csr = segment.sorted_csr(self.indptr, self.num_edges)
+        return segment.segment_sum(self.weights, csr)
+
+    def total_weight(self) -> torch.Tensor:
+        """Sum of all stored entries (the ``T`` of modularity,
+        partitioner.cpp:101), a 0-d tensor on the graph's device."""
+        return self.weights.sum()
+
+    def to_dense_numpy(self) -> np.ndarray:
+        s, r, w = self.to_coo_numpy()
+        out = np.zeros((self.n, self.n), dtype=np.asarray(w).dtype)
+        np.add.at(out, (s, r), w)
+        return out
 
     def degrees_numpy(self, use_weights: bool = True) -> np.ndarray:
         """[n] float64 degree = row sum incl. diagonal
@@ -175,3 +200,36 @@ def from_canonical_coo(s, r, w, n: int, *, dtype=torch.float32,
     w = (np.ones(s.shape[0], np.float64) if w is None
          else np.asarray(w, dtype=np.float64).ravel())
     return _build(s, r, w, n, dtype=dtype, device=device)
+
+
+def from_dense(mat, *, dtype=torch.float32, device="cpu") -> Graph:
+    """A Graph from a dense adjacency matrix (host; for tests and
+    oracles)."""
+    m = np.asarray(mat)
+    if m.ndim != 2 or m.shape[0] != m.shape[1]:
+        raise ValueError("expected a square matrix")
+    s, r = np.nonzero(m)
+    return from_edges(s, r, m[s, r], n=m.shape[0], dtype=dtype,
+                      device=device)
+
+
+def from_scipy(sp_mat, *, dtype=torch.float32, device="cpu") -> Graph:
+    """A Graph from any scipy sparse matrix (host; for tests and
+    oracles)."""
+    coo = sp_mat.tocoo()
+    return from_edges(coo.row, coo.col, coo.data, n=coo.shape[0],
+                      dtype=dtype, device=device)
+
+
+def submatrix(g: Graph, vertices, *, dtype=None) -> Graph:
+    """Induced subgraph on ``vertices`` (linalgcpp ``GetSubMatrix``,
+    examples/embedder.cpp:92,112), built on the host and placed on ``g``'s
+    device."""
+    vertices = np.asarray(vertices, dtype=np.int64)
+    remap = np.full(g.n, -1, dtype=np.int64)
+    remap[vertices] = np.arange(vertices.size)
+    s, r, w = g.to_coo_numpy()
+    keep = (remap[s] >= 0) & (remap[r] >= 0)
+    return from_edges(remap[s[keep]], remap[r[keep]], w[keep],
+                      n=int(vertices.size), dtype=dtype or g.dtype,
+                      device=g.device)

@@ -1,4 +1,4 @@
-"""Graph file readers and the coordinate writer (numpy parsing).
+"""Graph file readers and writers.
 
 Counterpart of graph_embed_tpu/graph/io.py; the formats are documented
 there:
@@ -9,36 +9,54 @@ there:
            line 4: data
   mtx      MatrixMarket coordinate format (1-based; ``symmetric`` honored)
 Readers build the graph on the host; move it with ``Graph.to(device)``.
+The edge lists (adjlist, coolist) go through the native parser
+(native/fastload.py, io.py:29-50 of the reference); a file it refuses is
+read with ``np.loadtxt``.  ``PARSES`` counts the files each route read.
+Writers: ``write_coords`` and ``write_partition`` (src/export.cpp),
+``write_coolist`` (linalgcpp ``WriteCooList``) and the embedder's
+multilevel partition dump.
 """
 
 from __future__ import annotations
 
-import numpy as np
+import collections
 
+import numpy as np
+import torch
+
+from ..native import fastload
 from .csr import Graph, from_edges
 
 FORMATS = ("adjlist", "coolist", "table", "csr", "mtx")
+#: files read per parser route, "native" or "loadtxt"
+PARSES: collections.Counter = collections.Counter()
 
 
-def _load_rows(path) -> np.ndarray:
-    return np.loadtxt(path, dtype=np.float64, comments=("%", "#"), ndmin=2)
+def _parse(path, cols: int):
+    """(src, dst, w or None) of an edge list: the native parser, or numpy
+    for a file it refuses."""
+    try:
+        out = fastload.parse_edges(path, cols)
+        PARSES["native"] += 1
+        return out
+    except fastload.Refused:
+        pass
+    data = np.loadtxt(path, dtype=np.float64, comments=("%", "#"), ndmin=2)
+    PARSES["loadtxt"] += 1
+    w = data[:, 2] if cols >= 3 and data.shape[1] >= 3 else None
+    return data[:, 0].astype(np.int64), data[:, 1].astype(np.int64), w
 
 
 def read_adjlist(path, symmetric: bool = False, **kw) -> Graph:
     """Edge-pair list, weight 1.0 (linalgcpp ``ReadAdjList``)."""
-    data = _load_rows(path)
-    return from_edges(data[:, 0].astype(np.int64),
-                      data[:, 1].astype(np.int64), None,
-                      symmetrize=symmetric, **kw)
+    s, r, _ = _parse(path, 2)
+    return from_edges(s, r, None, symmetrize=symmetric, **kw)
 
 
 def read_coolist(path, symmetric: bool = False, **kw) -> Graph:
     """Weighted triple list (linalgcpp ``ReadCooList``)."""
-    data = _load_rows(path)
-    w = data[:, 2] if data.shape[1] >= 3 else None
-    return from_edges(data[:, 0].astype(np.int64),
-                      data[:, 1].astype(np.int64), w,
-                      symmetrize=symmetric, **kw)
+    s, r, w = _parse(path, 3)
+    return from_edges(s, r, w, symmetrize=symmetric, **kw)
 
 
 def read_table(path, **kw) -> Graph:
@@ -109,14 +127,56 @@ def read_graph(path, fmt: str, symmetric: bool = False, **kw) -> Graph:
     return _READERS[fmt](path, **kw)
 
 
+def _host(a) -> np.ndarray:
+    """A tensor on any device, or an array, as a numpy array."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+def write_partition(vertex_to_agg, path) -> None:
+    """One aggregate id per line (src/export.cpp:16-25)."""
+    arr = _host(vertex_to_agg).astype(np.int64)
+    with open(path, "w") as f:
+        f.write("\n".join(str(int(a)) for a in arr))
+        f.write("\n")
+
+
+def write_coolist(g: Graph, path) -> None:
+    """Edge triple dump (linalgcpp ``WriteCooList``, run-tests.cpp:412)."""
+    s, r, w = g.to_coo_numpy()
+    with open(path, "w") as f:
+        for i, j, v in zip(s, r, w):
+            f.write(f"{int(i)} {int(j)} {float(v)}\n")
+
+
+def write_multilevel_partition(hierarchy_assignments, path) -> None:
+    """The embedder pipeline's multilevel partition dump
+    (embedder.cpp:230-267): an ``n k`` header, the aggregate count of each
+    level, then per level one line per aggregate listing its members.
+    ``hierarchy_assignments[l]`` maps level-l vertices to level-(l+1)
+    aggregate ids (tensors or arrays)."""
+    assigns = [_host(a) for a in hierarchy_assignments]
+    n = int(assigns[0].shape[0])
+    with open(path, "w") as f:
+        f.write(f"{n} {len(assigns)}\n")
+        f.write(" ".join(str(int(a.max()) + 1) for a in assigns))
+        f.write(" \n")
+        for assign in assigns:
+            m = int(assign.max()) + 1
+            order = np.argsort(assign, kind="stable")
+            counts = np.bincount(assign, minlength=m)
+            start = 0
+            for a in range(m):
+                members = order[start:start + counts[a]]
+                start += counts[a]
+                f.write(" ".join(str(int(v)) for v in members))
+                f.write(" \n")
+
+
 def write_coords(coords, path) -> None:
     """One space-separated coordinate row per vertex (src/export.cpp:27-39).
     ``coords`` is a tensor on any device or an array."""
-    if isinstance(coords, np.ndarray):
-        arr = coords
-    else:
-        arr = coords.detach().cpu().numpy()
+    rows = _host(coords).astype(np.float64).tolist()
     with open(path, "w") as f:
-        for row in arr:
-            f.write(" ".join(repr(float(v)) for v in row))
-            f.write(" \n")
+        f.writelines(" ".join(map(repr, row)) + " \n" for row in rows)

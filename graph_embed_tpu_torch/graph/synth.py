@@ -5,18 +5,27 @@ copied so the arrays are identical for the same arguments):
 * ``rmat`` -- the social/web power-law family (com-lj, com-youtube);
 * ``community_rmat`` -- the same family with community structure, the
   com-lj proxy of the LJ-scale flat step;
+* ``planted_partition`` -- ground-truth community graphs (email-Eu-core
+  with its .cmty labels);
 * ``ring_of_cliques`` -- the modularity sanity family.
 
 Each returns a symmetrized host ``Graph``; pass ``device`` or call
-``Graph.to`` to move it.
+``Graph.to`` to move it.  ``cached`` keeps a generated graph's canonical
+COO on disk, in the package's build directory unless told otherwise.
 """
 
 from __future__ import annotations
 
+import hashlib
+import os
+
 import numpy as np
 import torch
 
-from .csr import Graph, from_edges
+from .csr import Graph, from_canonical_coo, from_edges
+
+_CACHE_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "_build", "synth")
 
 
 def mesh3d(L: int, *, extra_frac: float = 0.0, seed: int = 0,
@@ -77,6 +86,37 @@ def rmat(scale: int, edge_factor: int = 16, *, a: float = 0.57,
                       device=device)
 
 
+def planted_partition(num_communities: int, size: int, *, p_in: float = 0.3,
+                      p_out: float = 0.01, seed: int = 0,
+                      dtype=torch.float32, device="cpu"):
+    """Planted-partition (SBM) graph with ground-truth labels: (graph,
+    labels[n]), the stand-in for graphs with ``.cmty`` ground truth
+    (run-tests.cpp:302-349).  The numpy stream is the reference's."""
+    n = num_communities * size
+    rng = np.random.default_rng(seed)
+    labels = np.repeat(np.arange(num_communities), size)
+    ss, rr = [], []
+    for k in range(num_communities):
+        base = k * size
+        m_in = rng.binomial(size * (size - 1) // 2, p_in)
+        i = rng.integers(0, size, m_in)
+        j = rng.integers(0, size, m_in)
+        ss.append(base + i)
+        rr.append(base + j)
+    m_out = rng.binomial(n * (n - 1) // 2, p_out)
+    i = rng.integers(0, n, m_out)
+    j = rng.integers(0, n, m_out)
+    keep = labels[i] != labels[j]
+    ss.append(i[keep])
+    rr.append(j[keep])
+    s = np.concatenate(ss)
+    r = np.concatenate(rr)
+    keep = s != r
+    g = from_edges(s[keep], r[keep], None, n=n, symmetrize=True,
+                   dtype=dtype, device=device)
+    return g, labels
+
+
 def community_rmat(num_communities: int, scale: int, edge_factor: int = 8,
                    *, inter_frac: float = 0.05, seed: int = 0,
                    dtype=torch.float32, device="cpu") -> Graph:
@@ -135,3 +175,80 @@ def ring_of_cliques(num_cliques: int, clique_size: int, *,
     r = np.concatenate(rr)
     return from_edges(s, r, None, n=C * K, symmetrize=True, dtype=dtype,
                       device=device)
+
+
+_FAMILIES = {"mesh3d": mesh3d, "rmat": rmat,
+             "planted_partition": planted_partition,
+             "community_rmat": community_rmat,
+             "ring_of_cliques": ring_of_cliques}
+
+
+def _cache_path(family: str, args, kwargs, cache_dir: str | None) -> str:
+    """The npz file of (family, args, kwargs); ``device`` is not part of
+    the key (the data do not depend on it)."""
+    cache_dir = cache_dir or _CACHE_DIR
+    os.makedirs(cache_dir, exist_ok=True)
+    key = {k: v for k, v in kwargs.items() if k != "device"}
+    sig = repr((args, sorted(key.items())))
+    h = hashlib.sha1(sig.encode()).hexdigest()[:12]
+    argtxt = "_".join(str(a) for a in args)
+    return os.path.join(cache_dir, f"{family}_{argtxt}_{h}.npz")
+
+
+def cached(family: str, *args, cache_dir: str | None = None, **kwargs):
+    """Disk-cached synthetic generation keyed by (family, args, kwargs):
+    ``cached("rmat", 22, 8, seed=1)`` equals ``rmat(22, 8, seed=1)`` (host
+    COO bit-identical); a cache hit skips the generator's sort and dedup.
+    planted_partition's ``(graph, labels)`` comes back as a tuple.  A
+    corrupt or partial file is regenerated (published by ``os.replace``)."""
+    if family not in _FAMILIES:
+        raise ValueError(f"unknown synth family {family!r}; "
+                         f"one of {sorted(_FAMILIES)}")
+    path = _cache_path(family, args, kwargs, cache_dir)
+    dtype = kwargs.get("dtype", torch.float32)
+    device = kwargs.get("device", "cpu")
+    if os.path.exists(path):
+        try:
+            z = np.load(path)
+            g = from_canonical_coo(z["s"], z["r"], z["w"], int(z["n"]),
+                                   dtype=dtype, device=device)
+            if "labels" in z:
+                return g, z["labels"]
+            return g
+        except Exception:
+            pass
+    out = _FAMILIES[family](*args, **kwargs)
+    g, labels = out if isinstance(out, tuple) else (out, None)
+    s, r, w = g.to_coo_numpy()
+    itype = np.int32 if g.n < (1 << 31) else np.int64
+    payload = {"s": s.astype(itype), "r": r.astype(itype),
+               "w": np.asarray(w), "n": np.int64(g.n)}
+    if labels is not None:
+        payload["labels"] = np.asarray(labels)
+    tmp = f"{path}.tmp.{os.getpid()}.npz"
+    try:
+        np.savez(tmp, **payload)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return out
+
+
+def cached_arrays(family: str, *args, load_weights: bool = True,
+                  cache_dir: str | None = None, **kwargs):
+    """Like :func:`cached`, but the raw canonical COO ``(s, r, w, n)``
+    without building a Graph on a hit; ``load_weights=False`` skips the
+    weight member."""
+    path = _cache_path(family, args, kwargs, cache_dir)
+    if os.path.exists(path):
+        try:
+            z = np.load(path)
+            w = z["w"] if load_weights else None
+            return z["s"], z["r"], w, int(z["n"])
+        except Exception:
+            pass
+    out = cached(family, *args, cache_dir=cache_dir, **kwargs)
+    g = out[0] if isinstance(out, tuple) else out
+    s, r, w = g.to_coo_numpy()
+    return s, r, (w if load_weights else None), g.n

@@ -153,5 +153,12 @@ def test_interop_carries_jax_state(rng):
 
 
 def test_device_coarsener_not_ported():
-    with pytest.raises(NotImplementedError, match="item 7: device coarsener"):
-        gp.partition_hierarchy(psynth.mesh3d(3), 0.1, backend="device")
+    """The device coarsener is ported: backend="device" gives the native
+    backend's hierarchy."""
+    g = psynth.mesh3d(3)
+    dev = gp.partition_hierarchy(g, 0.1, backend="device")
+    nat = gp.partition_hierarchy(g, 0.1, backend="native")
+    assert dev.level_sizes == nat.level_sizes
+    for a, b in zip(dev.levels, nat.levels):
+        np.testing.assert_array_equal(a.vertex_to_agg_numpy(),
+                                      b.vertex_to_agg_numpy())

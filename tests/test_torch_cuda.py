@@ -1035,3 +1035,32 @@ def test_kernel_b_partial_aggregates_match_plain(rng, dev, d, ndev):
     _assert_within_scale(got, want, scale)
     assert not got[~layout.valid_slot].any()
     assert torch.equal(MT.exact_repulsion_cuda(x, layout, REPEL, EPS), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weighted", [False, True])
+def test_device_coarsener_and_modularity_card_equal_cpu(rng, dev, weighted):
+    """The device coarsener on a 2,000-vertex graph without a host COO,
+    on the card and on the CPU: the same hierarchy (every float it decides
+    on is summed in one fixed order, kernel A's in-order rows on the card);
+    the native one too; kernel A launched; modularity within 1e-6."""
+    n = 2000
+    s = rng.integers(0, n, 4 * n)
+    r = rng.integers(0, n, 4 * n)
+    keep = s != r
+    w = rng.uniform(0.5, 2.0, keep.sum()) if weighted else None
+    g = from_edges(s[keep], r[keep], w, n=n, symmetrize=True)
+    cpu = gp.partition_hierarchy(dataclasses.replace(g, host_coo=None), 0.1)
+    nat = gp.partition_hierarchy(g, 0.1, backend="native")
+    cuda.LAUNCHES.clear()
+    card = gp.partition_hierarchy(
+        dataclasses.replace(g.to(dev), host_coo=None), 0.1)
+    assert cuda.LAUNCHES["edge_spmm[unit]"] > 0
+    assert card.level_sizes == cpu.level_sizes == nat.level_sizes
+    for a, b, c in zip(card.levels, cpu.levels, nat.levels):
+        assert a.vertex_to_agg.is_cuda
+        assert torch.equal(a.vertex_to_agg.cpu(), b.vertex_to_agg)
+        assert torch.equal(b.vertex_to_agg, c.vertex_to_agg)
+    q_card = float(gp.modularity(g.to(dev), card.levels[0]))
+    q_cpu = float(gp.modularity(g, cpu.levels[0]))
+    assert abs(q_card - q_cpu) < 1e-6

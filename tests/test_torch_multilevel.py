@@ -300,8 +300,10 @@ def test_partition_drivers_match_jax_native(which):
     assert got.num_aggs == want.num_aggs
     np.testing.assert_array_equal(got.vertex_to_agg_numpy(),
                                   want.vertex_to_agg_numpy())
-    with pytest.raises(NotImplementedError, match="item 7"):
-        phier.partition_single(g, backend="device")
+    dev = (phier.partition_single(g, backend="device") if which == "single"
+           else gp.partition_num_parts(g, 40, backend="device"))
+    np.testing.assert_array_equal(dev.vertex_to_agg_numpy(),
+                                  want.vertex_to_agg_numpy())
 
 
 def test_partition_helpers_match_jax(rng):
