@@ -93,6 +93,20 @@ Phases, one JSON line each:
             per second of both beside the single-shard step's (lj phase);
             then embed(mesh=make_mesh(8), sharding="halo") on mesh3d(128)
             (levels 0 and 1 refine sharded) torch.equal to make_mesh(1);
+  replicated  embed(mesh=make_mesh(8)) with the default sharding on levels
+            0 and 1 of the main hierarchy (the base case, 1,000
+            iterations, on the replicated tiled step, kernel A weighted
+            per shard; level 0 refined aggregate-sharded): seconds and
+            launches per span, layout stress, 8 shards torch.equal to 1;
+            the flat replicated step on the community graph (unit route)
+            and on rmat(20, 8) under linlog (kernel E): host seconds of
+            the per-shard CSRs, 20 iterations at 8 shards and at 1
+            (torch.equal), ms per iteration by events (the attraction
+            and the gram repulsion apart) beside the single-shard tiled
+            step's; kernels A (weighted, unit) and E on shard 0's CSR of
+            each route against their plain versions; radii_inner with
+            backend="bucketed" on levels 1-4 torch.equal to the native
+            sweep, seconds of each;
   determinism  two embed_graph runs on mesh3d(12) (random init, then a warm
             start), two runs of the mesh3d(128) flat step and two of the
             community graph's bf16 step, and the halo base case of a small
@@ -121,7 +135,8 @@ Phases, one JSON line each:
             plot.html of one point per vertex.
 Each path (main, entry, flat per graph, linlog, lj per plan, bf16 embed,
 portable embed, linlog embed, halo per graph, the sharded embed, the
-device hierarchy, the device chain, the card-only embed) is driven with the
+replicated pipeline and each replicated flat run, the device hierarchy,
+the device chain, the card-only embed) is driven with the
 launch counts set to 0 just before it and read just after; the CLI's
 subprocesses report their own.
 Then the nvidia-smi line, the kernel summary as one JSON object (per
@@ -1133,6 +1148,20 @@ def level0_refine_ms(records: list) -> float:
     return level0["seconds"] * 1e3 / REFINE_ITERATIONS
 
 
+def counting_logger():
+    """A MetricsLogger whose records carry the launch counts at their close
+    (``launch_total``, for ``span_launches``)."""
+    import graph_embed_tpu_torch as gp
+    from graph_embed_tpu_torch.ops import cuda
+
+    class CountingLogger(gp.MetricsLogger):
+        def log(self, **record):
+            record["launch_total"] = dict(cuda.LAUNCHES)
+            return super().log(**record)
+
+    return CountingLogger()
+
+
 def span_launches(records: list) -> list:
     """Each span record with the kernel launches made inside it (the
     difference of the counts logged at its close and at the previous
@@ -1163,11 +1192,6 @@ def phase_portable_embeds(torch, g, res, dev, main_coords) -> dict:
     from graph_embed_tpu_torch.harness.runtests import layout_stress
     from graph_embed_tpu_torch.ops import cuda
 
-    class CountingLogger(gp.MetricsLogger):
-        def log(self, **record):
-            record["launch_total"] = dict(cuda.LAUNCHES)
-            return super().log(**record)
-
     slot_stress = layout_stress(g, main_coords)
     for name, kw in (
             ("portable embed", dict(refine_backend="portable")),
@@ -1186,7 +1210,7 @@ def phase_portable_embeds(torch, g, res, dev, main_coords) -> dict:
             require(bool(torch.isfinite(coords).all()),
                     f"{name}: level {level} finite")
 
-        metrics = CountingLogger()
+        metrics = counting_logger()
         torch.cuda.synchronize()
         cuda.LAUNCHES.clear()
         t0 = time.perf_counter()
@@ -1734,6 +1758,227 @@ def phase_sharded_embed(torch, g, res, dev) -> dict:
     return launches
 
 
+def hold_shard_csr(torch, kernel: str, csr, gen, worst: dict, params=None,
+                   **fields) -> None:
+    """Kernel A (``params`` None) or E on one shard's CSR against its plain
+    version on random coordinates; the worst (max_abs_err,
+    max_err_over_scale) per kernel into ``worst``."""
+    import dataclasses
+
+    from graph_embed_tpu_torch.ops import edge_spmm as ES
+
+    x = torch.rand((csr.n_cols, 3), generator=gen, device=csr.device) * 2 - 1
+    if params is None:
+        abs_csr = (csr if csr.w is None
+                   else dataclasses.replace(csr, w=csr.w.abs()))
+        got, want = ES.spmv_cuda(x, csr), ES.spmv_plain(x, csr)
+        scale = ES.spmv_plain(x.abs(), abs_csr)
+    else:
+        kw = dict(attract=params.attract, eps=params.epsilon)
+        got, want = ES.linlog_cuda(x, csr, **kw), ES.linlog_plain(x, csr,
+                                                                  **kw)
+        scale = ES.linlog_plain(x, csr, absolute=True, **kw)
+    torch.cuda.synchronize()
+    err, ratio = hold(kernel, got, want, scale, rows=csr.n_rows,
+                      nnz=csr.nnz, **fields)
+    prev = worst.get(kernel, (0.0, 0.0))
+    worst[kernel] = (max(err, prev[0]), max(ratio, prev[1]))
+
+
+def steps_ms(torch, run) -> float:
+    """Median ms per iteration of ``run()`` (FLAT_ITERS iterations) by
+    CUDA events over 3 timings, after one warm-up run."""
+    run()
+    per = []
+    for _ in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        run()
+        b.record()
+        b.synchronize()
+        per.append(a.elapsed_time(b) / FLAT_ITERS)
+    return statistics.median(per)
+
+
+def replicated_flat(torch, name, g, params, single, dev, worst) -> None:
+    """The replicated flat step on ``g`` at HALO_SHARDS shards and at 1:
+    host seconds of the per-shard CSRs, FLAT_ITERS iterations of
+    ``sharded_force_atlas`` from one seed (torch.equal), launches, ms per
+    iteration by events beside the single-shard tiled step's (``single``:
+    its TiledFA, same graph and params, this call); kernel A or E held on
+    shard 0's CSR."""
+    from graph_embed_tpu_torch.ops import cuda
+    from graph_embed_tpu_torch.parallel import sharded as PSH
+    from graph_embed_tpu_torch.parallel.mesh import make_mesh
+
+    kernel = "edge_linlog" if params.linlog else "edge_spmm[unit]"
+    outs, rec = [], {}
+    for ndev in (HALO_SHARDS, 1):
+        mesh = make_mesh(ndev, device=dev)
+        t0 = time.perf_counter()
+        tiles = (PSH.build_sharded_edge_tiles(g, ndev, params=params,
+                                              device=dev)
+                 if params.linlog else
+                 PSH.build_sharded_tiles(g, ndev, dia_min_count=None,
+                                         params=params, device=dev))
+        torch.cuda.synchronize()
+        rec[f"build_seconds_{ndev}"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        cuda.LAUNCHES.clear()
+        outs.append(PSH.sharded_force_atlas(
+            g, 3, mesh=mesh, params=params, iterations=FLAT_ITERS, seed=7,
+            device=dev, tiles=tiles))
+        torch.cuda.synchronize()
+        path = dict(cuda.LAUNCHES)
+        require(path.get(kernel, 0) >= FLAT_ITERS * ndev,
+                f"replicated {name}: {kernel} on every shard and step")
+        step, n_pad = PSH.make_sharded_fa_step_tiled(mesh, tiles, 3, params,
+                                                     g.n)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        x0 = torch.zeros((n_pad, 3), device=dev)
+        x0[: g.n] = outs[-1]
+        deg = torch.zeros(n_pad, device=dev)
+        deg[: g.n] = g.degrees(params.use_weights)
+
+        def run():
+            x, f = x0, torch.zeros_like(x0)
+            for _ in range(FLAT_ITERS):
+                x, f = step(x, f, deg, step.draw(gen))
+
+        rec[f"ms_per_iteration_{ndev}"] = steps_ms(torch, run)
+        if ndev == HALO_SHARDS:
+            # where an iteration goes: the shards' attraction (kernel A or
+            # E and the shard sums), the gram repulsion (plain torch, as
+            # the reference's sharded.py:622-652 is plain jnp)
+            ids = step.draw(gen)
+            rec.update(attraction_ms=cuda_ms(lambda: step._attraction(x0)),
+                       repulsion_ms=cuda_ms(lambda: PSH._repulsion(
+                           x0, deg + 1.0, g.n, params, ids)))
+            launches = path
+            rec.update(packing=tiles.packing, sender_block=tiles.sender_block,
+                       window=tiles.window, dia_offsets=list(
+                           tiles.dia_offsets),
+                       shard_entries=[c.nnz for c in tiles.csrs])
+            hold_shard_csr(torch, kernel, tiles.csrs[0], gen, worst,
+                           params if params.linlog else None,
+                           path=f"replicated {name}", shard=0)
+        del tiles, step
+    require(bool(torch.isfinite(outs[0]).all()), f"replicated {name}: "
+            "finite coordinates")
+    require(torch.equal(outs[0], outs[1]), f"replicated {name}: "
+            f"{HALO_SHARDS} shards equal 1")
+    single_ms = steps_ms(torch, lambda: drive_steps(
+        torch, single, params, dev, FLAT_ITERS))
+    emit(phase="replicated", path="flat step", graph=name, n=g.n,
+         stored_entries=g.num_edges, linlog=params.linlog,
+         iterations=FLAT_ITERS, equal=True, launches_8_shards=launches,
+         single_shard_ms_per_iteration=single_ms, **rec)
+
+
+def phase_replicated(torch, g, res, lj, flat, main_coords, dev) -> dict:
+    """The replicated multi-shard design, embed(mesh=...)'s default: the
+    truncated mesh pipeline (levels 0 and 1 of the main hierarchy; the
+    base case runs the replicated tiled step, level 0 refines
+    aggregate-sharded), 8 shards torch.equal to 1, per-span seconds and
+    launches, layout stress; the flat replicated step on the community
+    graph (unit route) and rmat(20, 8) under linlog; the bucketed radii
+    on levels 1-4 torch.equal to the native sweep; kernels A and E on one
+    shard's CSR of each route against their plain versions (the worst
+    errors are returned for the summary line)."""
+    import graph_embed_tpu_torch as gp
+    from graph_embed_tpu_torch.embed import radii as PR
+    from graph_embed_tpu_torch.embed.driver import project_to_levels
+    from graph_embed_tpu_torch.harness.runtests import layout_stress
+    from graph_embed_tpu_torch.ops import cuda
+    from graph_embed_tpu_torch.parallel import sharded as PSH
+    from graph_embed_tpu_torch.parallel.mesh import make_mesh
+
+    worst = {}
+    gen = torch.Generator(device=dev).manual_seed(17)
+    t_phase = time.perf_counter()
+    graphs, parts = [g, res.coarse_graphs[0]], res.levels[:1]
+    base = graphs[1].to(dev)
+    n_pad = -(-base.n // HALO_SHARDS) * HALO_SHARDS
+    dense_bytes = 4 * (n_pad // HALO_SHARDS) * n_pad
+    outs, walls = [], []
+    for ndev in (HALO_SHARDS, 1):
+        metrics = counting_logger()
+        torch.cuda.synchronize()
+        cuda.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        outs.append(gp.embed(graphs, parts, 3, device=dev,
+                             base_iterations=1000, seed=5,
+                             mesh=make_mesh(ndev, device=dev),
+                             metrics=metrics))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if ndev == HALO_SHARDS:
+            launches = dict(cuda.LAUNCHES)
+            spans = span_launches(metrics.records)
+    base_span = [sp for sp in spans if sp["phase"] == "base"][0]
+    refine = [sp for sp in spans if sp["phase"] == "refine"][0]
+    require(base_span["launches"].get("edge_spmm[weighted]", 0) >= 1000
+            * HALO_SHARDS, "the replicated base case runs kernel A "
+            "weighted on every shard and iteration")
+    require(refine["route"] == "sharded"
+            and refine["launches"].get("bucket_repulsion", 0) > 0,
+            "level 0 refines aggregate-sharded (kernel B)")
+    require(tuple(outs[0].shape) == (g.n, 3)
+            and bool(torch.isfinite(outs[0]).all()),
+            "replicated pipeline: finite [n, 3] coordinates")
+    require(torch.equal(outs[0], outs[1]), f"replicated pipeline: "
+            f"{HALO_SHARDS} shards equal 1")
+    emit(phase="replicated", path="truncated mesh3d(128) pipeline",
+         level_sizes=[gr.n for gr in graphs],
+         entries=[gr.num_edges for gr in graphs],
+         dense_block_bytes=dense_bytes,
+         switched_to_sampled=dense_bytes > PSH.DENSE_D2_MAX_BYTES,
+         seconds_8_shards=walls[0], seconds_1_shard=walls[1], equal=True,
+         launches=launches, spans=spans,
+         layout_stress=layout_stress(g, outs[0]))
+    del outs
+    t0 = time.perf_counter()
+    tiles = PSH.build_sharded_tiles(base, HALO_SHARDS, dia_min_count=None,
+                                    params=gp.ForceAtlasParams(), device=dev)
+    torch.cuda.synchronize()
+    require(tiles.packing == "bf16", "the Galerkin level takes the bf16 "
+            "packing")
+    hold_shard_csr(torch, "edge_spmm[weighted]", tiles.csrs[0], gen, worst,
+                   path="replicated base case", shard=0,
+                   build_seconds=time.perf_counter() - t0)
+    del tiles
+
+    cg, c_tfa = lj["community f32"][:2]
+    replicated_flat(torch, "community", cg, flat_params(), c_tfa, dev, worst)
+    rg, r_tfa = flat["rmat(20,8) linlog"][:2]
+    replicated_flat(torch, "rmat(20,8) linlog", rg, flat_params(linlog=True),
+                    r_tfa, dev, worst)
+
+    cs = project_to_levels(main_coords, res.levels)
+    all_graphs = [g] + res.coarse_graphs
+    radii = []
+    for lv in range(1, min(5, len(res.levels))):
+        part = res.levels[lv].to(dev)
+        r_c = torch.ones(part.num_aggs, device=dev)
+        got, sec = {}, {}
+        for backend in ("bucketed", "auto"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got[backend] = PR.radii_inner(cs[lv], r_c, all_graphs[lv], part,
+                                          backend=backend)
+            torch.cuda.synchronize()
+            sec[backend] = time.perf_counter() - t0
+        require(torch.equal(got["bucketed"], got["auto"]),
+                f"level {lv}: the bucketed radii equal the native ones")
+        radii.append(dict(level=lv, aggregates=all_graphs[lv].n,
+                          bucketed_seconds=sec["bucketed"],
+                          native_seconds=sec["auto"]))
+    emit(phase="replicated", path="radii_inner bucketed vs native",
+         levels=radii, equal=True, seconds=time.perf_counter() - t_phase)
+    return worst
+
+
 def phase_cli(dev) -> None:
     import numpy as np
 
@@ -2091,6 +2336,10 @@ def main() -> int:
             kernels[name][key] = max(kernels[name][key], v)
     kernels["ring_attraction"] = phase_halo(torch, lj, dev)
     phase_sharded_embed(torch, g, res, dev)
+    for name, errs in phase_replicated(torch, g, res, lj, flat, main_coords,
+                                       dev).items():
+        for key, v in zip(("max_abs_err", "max_err_over_scale"), errs):
+            kernels[name][key] = max(kernels[name][key], v)
     phase_determinism(torch, flat, lj, dev)
     phase_cli(dev)
     phase_device_partition(torch, g, res, native_s, flat, dev, main_coords)

@@ -34,6 +34,7 @@ from ..graph.reorder import apply_order, partition_order
 from ..ops import segment
 from ..ops.spgemm import coarsen_graph, coarsen_graph_device
 from ..parallel.halo import halo_force_atlas
+from ..parallel.sharded import sharded_force_atlas
 from ..parallel.sharded_ml import (prepare_refine_sharded,
                                    refine_level_sharded)
 from ..partition.hierarchy import partition_hierarchy
@@ -142,24 +143,21 @@ def embed(graphs: list[Graph], parts: list[Partition], dim: int = 3, *,
     equals a fresh one.
     ``mesh`` (``parallel.mesh.make_mesh``, on ``device``): levels of at
     least ``mesh_min_n`` vertices refine with their aggregates dealt over
-    the mesh's shards (``parallel.sharded_ml``), and with
-    ``sharding="halo"`` a coarsest level that large runs the halo step
-    (partition-ordered, vertex-partitioned, invariant sampling;
-    ``base_order`` gives its ordering, new position -> old id, instead of
-    partitioning the level again).  Both give the same layout at any shard
-    count.  ``sharding="replicated"`` (parallel/sharded.py) is not ported,
-    and a mesh with linlog refinement raises: the reference's sharded
-    refinement has no log term (reference fault 8, ROADMAP queue 3).
+    the mesh's shards (``parallel.sharded_ml``), and a coarsest level that
+    large runs a multi-shard flat step: with ``sharding="replicated"``
+    (the default) the replicated step (``parallel.sharded``: edge-sharded
+    attraction, the level's base parameters, tiled from 100k edges on the
+    card), with ``sharding="halo"`` the halo step (partition-ordered,
+    vertex-partitioned, invariant sampling; ``base_order`` gives its
+    ordering, new position -> old id, instead of partitioning the level
+    again).  Both give the same layout at any shard count.  A mesh with
+    linlog refinement raises: the reference's sharded refinement has no
+    log term (reference fault 8, ROADMAP queue 3).
     """
     if sharding not in ("replicated", "halo"):
         # a typo must not fall through to another design
         raise ValueError(f"unknown sharding {sharding!r}; "
                          "expected 'replicated' or 'halo'")
-    if mesh is not None and sharding == "replicated":
-        raise NotImplementedError(
-            "the replicated multi-shard design (parallel/sharded.py) is not "
-            "ported yet (ROADMAP queue 1, item 6: sharded.py); pass "
-            "sharding='halo'")
     if refine_backend not in ("auto", "tiled", "portable"):
         raise ValueError(f"unknown refine_backend {refine_backend!r}")
     refine_params = refine_params or MultilevelFAParams()
@@ -204,9 +202,15 @@ def embed(graphs: list[Graph], parts: list[Partition], dim: int = 3, *,
         with metrics.span("base", device, level=k, n=graphs[k].n):
             warm_k = warm[k] if warm is not None else None
             if mesh is not None and graphs[k].n >= mesh_min_n:
-                coords_A = _halo_base_case(graphs[k], dim, mesh, base_params,
-                                           base_iterations, seeds[k], warm_k,
-                                           order=base_order)
+                if sharding == "halo":
+                    coords_A = _halo_base_case(
+                        graphs[k], dim, mesh, base_params, base_iterations,
+                        seeds[k], warm_k, order=base_order)
+                else:
+                    coords_A = sharded_force_atlas(
+                        graphs[k], dim, mesh=mesh, params=base_params,
+                        iterations=base_iterations, seed=seeds[k],
+                        coords0=warm_k, device=mesh.device)
             else:
                 coords_A = force_atlas(graphs[k], dim, seed=seeds[k],
                                        params=base_params,

@@ -120,6 +120,33 @@ def _sparse_cells(s, r, n: int, sender_block: int, window: int,
     return counts[inv.ravel()] < min_pair_edges
 
 
+def residual_edges(s, r, folded, n: int, *, unit: bool, dia=None,
+                   sender_block: int, window: int,
+                   min_pair_edges: int = 0):
+    """The edges kernel A runs, with their weights as the reference's
+    packer stores them: zero weights (edge_spmm.py:488) and the edges of
+    the DIA plan ``dia`` dropped; then unit weights as None, else the
+    weights truncated toward zero to bf16, exact float32 in the cells of
+    fewer than ``min_pair_edges`` edges (its overflow path).  Returns (s,
+    r, weights or None, paired): ``paired`` says the reference pairs these
+    unit tiles, and so gathers bf16 pairs under ``x_precision='bf16'``
+    (from window 2048, for windows of whole 1024s: tiled.py:197-206,
+    edge_spmm.py:1409-1417)."""
+    keep = folded != 0.0
+    if dia is not None:
+        keep &= dia.residual_mask
+    s, r, folded = s[keep], r[keep], folded[keep]
+    wres = None
+    if not unit:
+        wres = ES.truncate_bf16(folded)
+        if min_pair_edges > 1:
+            ovf = _sparse_cells(s, r, n, sender_block, window,
+                                min_pair_edges)
+            wres[ovf] = np.asarray(folded[ovf], np.float32)
+    paired = unit and window >= ES.JUMBO_JOIN_MIN and window % 1024 == 0
+    return s, r, wres, paired
+
+
 def prepare_tiled(g: Graph, dim: int, params: ForceAtlasParams,
                   *, tile: int | None = None, interpret: bool | None = None,
                   min_pair_edges: int = 0,
@@ -187,25 +214,10 @@ def prepare_tiled(g: Graph, dim: int, params: ForceAtlasParams,
 
     deg_w = np.zeros(g.n, np.float32)
     csr = None
-    keep = folded != 0.0  # the packer drops zero weights (edge_spmm.py:488)
-    if dia is not None:
-        keep &= dia.residual_mask
-    if keep.any():
-        s, r, folded = s[keep], r[keep], folded[keep]
-        wres = None
-        if not unit:
-            # residual weights as the reference packer stores them:
-            # truncated toward zero to bf16, exact on its overflow path
-            wres = ES.truncate_bf16(folded)
-            if min_pair_edges > 1:
-                ovf = _sparse_cells(s, r, g.n, sender_block, window,
-                                    min_pair_edges)
-                wres[ovf] = folded[ovf].astype(np.float32)
-        # the reference pairs unit tiles from window 2048 and then gathers
-        # bf16 pairs when the window is a multiple of 1024 (tiled.py:197-206,
-        # edge_spmm.py:1409-1417)
-        paired = (unit and window >= ES.JUMBO_JOIN_MIN
-                  and window % 1024 == 0)
+    s, r, wres, paired = residual_edges(
+        s, r, folded, g.n, unit=unit, dia=dia, sender_block=sender_block,
+        window=window, min_pair_edges=min_pair_edges)
+    if s.size:
         csr, deg_w = ES.build_csr(s, r, wres, g.n, device=dev,
                                   bf16_gather=paired)
         deg_w = deg_w.cpu().numpy()

@@ -133,8 +133,17 @@ def _build(s, r, w, n: int, *, dtype, device) -> Graph:
     return g.to(device)
 
 
+#: from_coo sums duplicates with the native radix sort (native/pack_lib)
+#: from this many entries; below it numpy beats the ctypes round trip
+_NATIVE_MIN_EDGES = 1 << 16
+
+
 def _finish_coo(s, r, w, n, *, sum_duplicates: bool, dtype, device) -> Graph:
-    if sum_duplicates and s.size:
+    if sum_duplicates and s.size >= _NATIVE_MIN_EDGES:
+        from ..native import pack_lib
+
+        s, r, w, _ = pack_lib.coo_dedup(s, r, w, n)
+    elif sum_duplicates and s.size:
         key = s * np.int64(n) + r
         order = np.argsort(key, kind="stable")
         key, s, r, w = key[order], s[order], r[order], w[order]

@@ -1,9 +1,9 @@
 """Native (C++) host backends: g++ builds of the port's own copies of the
-coarsener, the first-collision sweep, the one-sided greedy coarsener and
-the edge-list parser, loaded with ctypes.
+coarsener, the first-collision sweep, the one-sided greedy coarsener, the
+edge-list parser and the duplicate-summing COO sort, loaded with ctypes.
 
-``csrc/coarsen.cpp``, ``sweep.cpp``, ``greedy.cpp`` and ``fastload.cpp``
-are byte-for-byte copies of
+``csrc/coarsen.cpp``, ``sweep.cpp``, ``greedy.cpp``, ``fastload.cpp`` and
+``pack.cpp`` are byte-for-byte copies of
 the JAX package's ``graph_embed_tpu/native`` sources (a test holds them
 equal, which keeps the two packages' hierarchies bit-identical); the port
 builds and reads nothing from that tree.  The libraries are built into the

@@ -35,6 +35,15 @@ def _lib():
     return _LIB
 
 
+def available() -> bool:
+    """Whether the library builds and loads here (g++ present)."""
+    try:
+        _lib()
+    except OSError:
+        return False
+    return True
+
+
 def _float(tau0, lib, stem: str):
     tau0 = np.ascontiguousarray(tau0)
     if tau0.dtype == np.float32:

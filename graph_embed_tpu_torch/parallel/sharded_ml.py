@@ -131,6 +131,29 @@ def _place_into_parents(x, shl: ShardedRefineLayout, coords_A, r_A,
     return torch.where(valid, placed, torch.zeros_like(placed))
 
 
+def make_refine_sharded_step(mesh: ShardMesh, shl: ShardedRefineLayout,
+                             dim: int, params: MultilevelFAParams,
+                             iterations: int):
+    """The whole-level refinement (sharded_ml.py:225-301): ``step(x, pull,
+    coords_A, r_A, generator)`` runs ``iterations`` refinement iterations
+    on the stacked slot coordinates ``x`` [n_slots, dim] with no exchange
+    between shards, then the epilogue, and returns the placed slots
+    (ghosts 0)."""
+    if shl.ndev != mesh.ndev:
+        raise ValueError(f"the layout has {shl.ndev} shards, the mesh "
+                         f"{mesh.ndev}")
+
+    def step(x, pull_slot, coords_A, r_A, generator):
+        if x.shape != (shl.layout.n_slots, dim):
+            raise ValueError(f"the step takes [{shl.layout.n_slots}, {dim}] "
+                             f"slot coordinates, got {tuple(x.shape)}")
+        x = MT.refine_loop(x, shl.layout, pull_slot, params, iterations,
+                           generator)
+        return _place_into_parents(x, shl, coords_A, r_A, params.epsilon)
+
+    return step
+
+
 def refine_level_sharded(g: Graph, part: Partition, coords_A, r_A, dim: int,
                          *, mesh: ShardMesh, seed: int = 0,
                          iterations: int = 100,
@@ -155,9 +178,7 @@ def refine_level_sharded(g: Graph, part: Partition, coords_A, r_A, dim: int,
     g, part = g.to(dev), part.to(dev)
     if layout is None:
         layout = prepare_refine_sharded(g, part, params, mesh.ndev)
-    if layout.ndev != mesh.ndev:
-        raise ValueError(f"the layout has {layout.ndev} shards, the mesh "
-                         f"{mesh.ndev}")
+    step = make_refine_sharded_step(mesh, layout, dim, params, iterations)
     lay = layout.layout
     eps = params.epsilon
     coords_A = torch.as_tensor(coords_A).to(dev, torch.float32)
@@ -175,6 +196,4 @@ def refine_level_sharded(g: Graph, part: Partition, coords_A, r_A, dim: int,
         c0 = torch.as_tensor(coords0).to(dev, torch.float32)
     x = torch.zeros((lay.n_slots, dim), dtype=torch.float32, device=dev)
     x[lay.slot_of_vertex] = c0
-    x = MT.refine_loop(x, lay, pull_slot, params, iterations, gen)
-    out = _place_into_parents(x, layout, coords_A, r_A, eps)
-    return out[lay.slot_of_vertex]
+    return step(x, pull_slot, coords_A, r_A, gen)[lay.slot_of_vertex]

@@ -1064,3 +1064,110 @@ def test_device_coarsener_and_modularity_card_equal_cpu(rng, dev, weighted):
     q_card = float(gp.modularity(g.to(dev), card.levels[0]))
     q_cpu = float(gp.modularity(g, cpu.levels[0]))
     assert abs(q_card - q_cpu) < 1e-6
+
+
+def _shard_graph(s, r, n, rng, *, unit):
+    """A symmetric graph on the edges (s, r): unit weights, duplicates
+    included, or random ones."""
+    g = from_edges(s, r, None if unit else rng.uniform(0.5, 2.0, s.size),
+                   n=n, symmetrize=True)
+    if not unit:
+        return g
+    sc, rc, _ = g.to_coo_numpy()
+    return gp.from_canonical_coo(sc, rc, np.ones(sc.size), n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["portable", "weighted", "unit", "dia",
+                                   "linlog"])
+def test_replicated_shard_counts_equal_on_card(rng, dev, route, monkeypatch):
+    """The replicated multi-shard step on the card: 8 shards and 1 give
+    torch.equal layouts on every route, each on its kernel (the portable
+    route's segment sums and the bf16 packing on kernel A, unit mode on
+    paired unit tiles, linlog on kernel E)."""
+    from graph_embed_tpu_torch.parallel import sharded as PSH
+    from graph_embed_tpu_torch.parallel.mesh import make_mesh
+
+    n = 3000
+    s, r = rng.integers(0, n, 4 * n), rng.integers(0, n, 4 * n)
+    keep = s != r
+    g = _shard_graph(s[keep], r[keep], n, rng, unit=route == "unit")
+    if route == "unit":
+        monkeypatch.setattr(PSH, "UNIT_JUMBO_MIN_EDGES", 100)
+    if route == "dia":
+        g = synth.mesh3d(14, extra_frac=0.2, seed=1)
+    params = ForceAtlasParams(repulsion="sampled", num_negative_samples=64,
+                              linlog=route == "linlog")
+    kernel = {"portable": "edge_spmm[unit]", "weighted": "edge_spmm[weighted]",
+              "unit": "edge_spmm[unit]", "dia": "edge_spmm[weighted]",
+              "linlog": "edge_linlog"}[route]
+    outs = []
+    for k in (8, 1):
+        extra = {"tiled": route != "portable"}
+        if route == "dia":
+            extra["tiles"] = PSH.build_sharded_tiles(
+                g.to(dev), k, params=params, dia_min_count=64, device=dev)
+            assert extra["tiles"].dia_offsets
+        cuda.LAUNCHES.clear()
+        outs.append(PSH.sharded_force_atlas(
+            g, 3, mesh=make_mesh(k, device=dev), params=params,
+            iterations=10, seed=1, device=dev, **extra))
+        assert cuda.LAUNCHES[kernel] >= 10 * k
+    assert outs[0].is_cuda and bool(torch.isfinite(outs[0]).all())
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["weighted", "unit", "linlog"])
+def test_replicated_shard_csr_kernels_match_plain(rng, dev, route,
+                                                  monkeypatch):
+    """Kernels A and E on one shard's CSR of each replicated route against
+    their plain versions, each element within 1e-5 of its own sum of
+    |terms|."""
+    from graph_embed_tpu_torch.parallel import sharded as PSH
+
+    n = 5000
+    s, r = _hub_coo(rng, n, 40000)
+    keep = s != r
+    g = _shard_graph(s[keep], r[keep], n, rng, unit=route == "unit")
+    params = ForceAtlasParams(linlog=route == "linlog")
+    if route == "unit":
+        monkeypatch.setattr(PSH, "UNIT_JUMBO_MIN_EDGES", 100)
+    build = (PSH.build_sharded_edge_tiles if route == "linlog"
+             else PSH.build_sharded_tiles)
+    tiles = build(g, 4, params=params, device=dev)
+    csr = tiles.csrs[1]
+    assert csr.kind == ("unit" if route == "unit" else "weighted")
+    x = torch.from_numpy(rng.uniform(-1, 1, (tiles.n_pad, 3)).astype(
+        np.float32)).to(dev)
+    if route == "linlog":
+        kw = dict(attract=1.0, eps=1e-5)
+        got = ES.linlog(x, csr, **kw)
+        want = ES.linlog_plain(x, csr, **kw)
+        scale = ES.linlog_plain(x, csr, absolute=True, **kw)
+    else:
+        got, want = ES.spmv(x, csr), ES.spmv_plain(x, csr)
+        scale = ES.spmv_plain(x.abs(), csr)   # positive weights
+    torch.cuda.synchronize()
+    _assert_within_scale(got, want, scale)
+
+
+@pytest.mark.cuda
+def test_bucketed_radii_equal_native_on_card(rng, dev):
+    """radii_inner(backend='bucketed') sweeps on the card, torch.equal to
+    the native sweep of backend='auto'."""
+    from graph_embed_tpu_torch.embed import radii as PR
+
+    n, mc = 400, 12
+    v2a = np.repeat(np.arange(mc), rng.multinomial(n - mc, np.ones(mc) / mc)
+                    + 1)
+    s, r = rng.integers(0, n, 4000), rng.integers(0, n, 4000)
+    keep = s != r
+    cg = from_edges(s[keep], r[keep], None, n=n, symmetrize=True)
+    part = Partition.from_numpy(v2a, mc, device=dev)
+    coords = torch.from_numpy(rng.uniform(-1, 1, (n, 3)).astype(
+        np.float32)).to(dev)
+    r_c = torch.ones(mc, device=dev)
+    got = PR.radii_inner(coords, r_c, cg, part, backend="bucketed")
+    assert got.is_cuda
+    assert torch.equal(got, PR.radii_inner(coords, r_c, cg, part))

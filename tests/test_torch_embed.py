@@ -220,10 +220,11 @@ def test_embed_graph_packs_levels_into_parent_balls():
 
 
 def test_unported_options_raise():
-    """Only the replicated mesh design and linlog refinement with a mesh
-    raise (the latter names reference fault 8: the reference's sharded
-    refinement drops the log term); both before any level runs.  The
-    slot-space and sharded refinements refuse linlog themselves."""
+    """Only linlog refinement with a mesh raises, under either sharding
+    (it names reference fault 8: the reference's sharded refinement drops
+    the log term), before any level runs; the default sharding with a
+    mesh runs (the replicated design).  The slot-space and sharded
+    refinements refuse linlog themselves."""
     g = psynth.ring_of_cliques(3, 4)
     from graph_embed_tpu_torch.forceatlas import multilevel_tiled as MT
     from graph_embed_tpu_torch.parallel import sharded_ml as SM
@@ -231,11 +232,13 @@ def test_unported_options_raise():
 
     mesh = make_mesh(2, device="cpu")
     linlog = gp.MultilevelFAParams(linlog=True)
-    for kw, text in (({"mesh": mesh}, "ROADMAP queue 1, item 6"),
-                     ({"mesh": mesh, "sharding": "halo",
-                       "refine_params": linlog}, "reference fault 8")):
-        with pytest.raises(NotImplementedError, match=text):
-            gp.embed_graph(g, 2, device="cpu", **kw)
+    coords, _ = gp.embed_graph(g, 2, device="cpu", mesh=mesh, mesh_min_n=1,
+                               base_iterations=20, refine_iterations=3)
+    assert coords.shape == (g.n, 2) and bool(torch.isfinite(coords).all())
+    for sharding in ("replicated", "halo"):
+        with pytest.raises(NotImplementedError, match="reference fault 8"):
+            gp.embed_graph(g, 2, device="cpu", mesh=mesh, sharding=sharding,
+                           refine_params=linlog)
     part = gp.partition_hierarchy(g, 0.1).levels[0]
     cA, rA = torch.zeros((part.num_aggs, 2)), torch.ones(part.num_aggs)
     with pytest.raises(NotImplementedError, match="portable refinement"):

@@ -32,6 +32,7 @@ from graph_embed_tpu.utils.params import (ForceAtlasParams,
 
 import graph_embed_tpu_torch as gp
 from graph_embed_tpu_torch import interop
+from graph_embed_tpu_torch import parallel as PP
 from graph_embed_tpu_torch.forceatlas import multilevel_tiled as MT
 from graph_embed_tpu_torch.parallel import halo as PH
 from graph_embed_tpu_torch.parallel import overlap as POV
@@ -365,14 +366,19 @@ def test_embed_halo_mesh_is_shard_count_invariant(rng):
 
 
 def test_embed_mesh_options(rng):
-    """The JAX driver's ValueErrors (unknown sharding, a bad base_order)
-    and the replicated design, not ported, naming its ROADMAP item."""
+    """The JAX driver's ValueErrors (unknown sharding, a bad base_order);
+    the default sharding runs the replicated base case, and linlog
+    refinement with a mesh still raises (reference fault 8)."""
     _, g = _graphs(rng, 120)
     mesh = make_mesh(2, device=CPU)
     with pytest.raises(ValueError, match="sharding"):
         gp.embed([g], [], 2, device=CPU, mesh=mesh, sharding="Halo")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gp.embed([g], [], 2, device=CPU, mesh=mesh)
+    out = gp.embed([g], [], 2, device=CPU, mesh=mesh, mesh_min_n=1,
+                   base_iterations=3)
+    assert out.shape == (g.n, 2) and bool(torch.isfinite(out).all())
+    with pytest.raises(NotImplementedError, match="reference fault 8"):
+        gp.embed([g], [], 2, device=CPU, mesh=mesh,
+                 refine_params=gp.MultilevelFAParams(linlog=True))
     with pytest.raises(ValueError, match="base_order"):
         gp.embed([g], [], 2, device=CPU, mesh=mesh, mesh_min_n=1,
                  sharding="halo", base_iterations=2,
@@ -399,7 +405,8 @@ def test_native_sources_live_in_the_port():
 @pytest.mark.parametrize("entry", ["force_atlas", "force_atlas_tiled",
                                    "halo_force_atlas", "make_mesh",
                                    "force_atlas_multilevel",
-                                   "embed_via_minimization"])
+                                   "embed_via_minimization",
+                                   "sharded_force_atlas"])
 def test_entry_points_default_to_the_card(entry):
     """Without ``device`` the entry points run on CUDA; on a machine
     without a card they raise instead of running on the CPU."""
@@ -417,6 +424,8 @@ def test_entry_points_default_to_the_card(entry):
             g, interop.partition(np.zeros(g.n, np.int32), 1),
             torch.zeros((1, 2)), torch.ones(1), 2, iterations=2),
         "embed_via_minimization": lambda: gp.embed_via_minimization(
+            g, 2, iterations=2),
+        "sharded_force_atlas": lambda: PP.sharded_force_atlas(
             g, 2, iterations=2),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
