@@ -150,9 +150,13 @@ def embed(graphs: list[Graph], parts: list[Partition], dim: int = 3, *,
     card), with ``sharding="halo"`` the halo step (partition-ordered,
     vertex-partitioned, invariant sampling; ``base_order`` gives its
     ordering, new position -> old id, instead of partitioning the level
-    again).  Both give the same layout at any shard count.  A mesh with
-    linlog refinement raises: the reference's sharded refinement has no
-    log term (reference fault 8, ROADMAP queue 3).
+    again).  Both give the same layout at any shard count.  Linlog
+    refinement with a mesh raises, before the base case, where a level to
+    refine has at least ``mesh_min_n`` vertices: the reference's sharded
+    refinement has no log term (reference fault 8, ROADMAP queue 3).
+    Every other linlog level takes the portable refinement, as without a
+    mesh.  A mesh from ``parallel.multihost.global_mesh`` spans processes:
+    every rank runs the same levels and returns the same coordinates.
     """
     if sharding not in ("replicated", "halo"):
         # a typo must not fall through to another design
@@ -161,13 +165,19 @@ def embed(graphs: list[Graph], parts: list[Partition], dim: int = 3, *,
     if refine_backend not in ("auto", "tiled", "portable"):
         raise ValueError(f"unknown refine_backend {refine_backend!r}")
     refine_params = refine_params or MultilevelFAParams()
-    if mesh is not None and refine_params.linlog:
-        raise NotImplementedError(
-            "linlog refinement with a mesh: the reference's sharded "
-            "refinement folds attraction into its SpMV tiles and drops the "
-            "log term (reference fault 8, ROADMAP queue 3), and the port "
-            "does not copy it")
     validate_hierarchy(graphs, parts)
+    k = len(parts)
+    resume_from = store.last_completed(k) if store is not None else None
+    start = k - 1 if resume_from is None else resume_from - 1
+    refined = [l for l in range(start + 1)
+               if not (l == 0 and final_block is not None)]
+    if (mesh is not None and refine_params.linlog
+            and any(graphs[l].n >= mesh_min_n for l in refined)):
+        raise NotImplementedError(
+            "linlog refinement of a level of at least mesh_min_n vertices: "
+            "the reference's sharded refinement folds attraction into its "
+            "SpMV tiles and drops the log term (reference fault 8, ROADMAP "
+            "queue 3), and the port does not copy it")
     device = resolve(device)
     if mesh is not None and mesh.device != device:
         raise ValueError(f"the mesh lives on {mesh.device}, the embed runs "
@@ -175,7 +185,6 @@ def embed(graphs: list[Graph], parts: list[Partition], dim: int = 3, *,
     graphs = [g.to(device) for g in graphs]
     parts = [p.to(device) for p in parts]
     base_params = base_params or ForceAtlasParams()
-    k = len(parts)
     if base_iterations is None:
         base_iterations = default_base_iterations(graphs[k].n, base_params)
     seeds = _level_seeds(seed, k)
@@ -186,7 +195,6 @@ def embed(graphs: list[Graph], parts: list[Partition], dim: int = 3, *,
 
     metrics = metrics or MetricsLogger()
     r_Ac = coords_Ac = None
-    resume_from = store.last_completed(k) if store is not None else None
     if resume_from is not None:
         data = store.load_level(resume_from)
 
@@ -196,7 +204,6 @@ def embed(graphs: list[Graph], parts: list[Partition], dim: int = 3, *,
         coords_A = load("coords")
         if "r_A" in data:
             r_Ac, coords_Ac = load("r_A"), load("coords_parent")
-        start = resume_from - 1
         metrics.log(phase="resume", level=resume_from)
     else:
         with metrics.span("base", device, level=k, n=graphs[k].n):
@@ -218,7 +225,6 @@ def embed(graphs: list[Graph], parts: list[Partition], dim: int = 3, *,
                                        coords=warm_k, device=device)
         if store is not None:
             store.save_level(k, coords=coords_A)
-        start = k - 1
     portable = refine_backend == "portable" or refine_params.linlog
     for l in range(start, -1, -1):
         A_c = graphs[l + 1]
@@ -248,7 +254,9 @@ def embed(graphs: list[Graph], parts: list[Partition], dim: int = 3, *,
             prepare, refine = _ROUTES[route]
             with metrics.span("layout", device, level=l, n=graphs[l].n):
                 layout = prepare(graphs[l], parts[l], refine_params,
-                                 *([mesh.ndev] if sharded else []))
+                                 **(dict(ndev=mesh.ndev,
+                                         shards=mesh.local_shards)
+                                    if sharded else {}))
             with metrics.span("refine", device, route=route, **span):
                 coords = refine(graphs[l], parts[l], coords_A, r_A, dim,
                                 seed=seeds[l], iterations=refine_iterations,

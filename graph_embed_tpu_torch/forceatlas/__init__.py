@@ -1,0 +1,1 @@
+from . import forces, flat, multilevel, tiled

@@ -86,7 +86,9 @@ def vertex_slots(v2a, counts, start) -> np.ndarray:
 
 @dataclasses.dataclass(frozen=True)
 class Bucket:
-    """The aggregates of one size class: slots [base, base + m_b * S)."""
+    """The aggregates of one size class: slots [base, base + m_b * S).
+    A sampled bucket takes rows [u_row, u_row + m_b) of its class's
+    uniforms."""
 
     base: int
     m_b: int
@@ -94,6 +96,7 @@ class Bucket:
     aggs: torch.Tensor     # [m_b] aggregate ids in slot order
     counts: torch.Tensor   # [m_b] member counts
     sampled: bool
+    u_row: int = 0
 
     @property
     def slots(self) -> slice:
@@ -114,8 +117,9 @@ class RefineLayout:
     buckets: tuple
     # per sampled size class, smallest first: (its aggregates, the indices
     # of its buckets); the class's uniforms are drawn at once and dealt to
-    # its buckets in order, m_b rows each (ghost aggregates past the end
-    # get zeros), so a class dealt over shards draws as one bucket does
+    # its buckets, m_b rows each from ``Bucket.u_row`` (ghost aggregates
+    # past the end get zeros), so a class dealt over shards draws as one
+    # bucket does
     sampled_classes: tuple
     exact_meta: torch.Tensor      # [tasks, 4] int32 kernel B table
     exact_aggs: torch.Tensor      # [aggregates, 2] int32 its small classes
@@ -231,7 +235,7 @@ def _task_table(buckets, valid) -> tuple[np.ndarray, np.ndarray]:
 
 def slot_layout(g: Graph, v2a, counts, params: MultilevelFAParams,
                 slot_start, n_slots: int, buckets: list, *, ref_start=None,
-                ref_slots: int = 0) -> RefineLayout:
+                ref_slots: int = 0, vertices=None) -> RefineLayout:
     """The layout of one level from the first slot of every aggregate
     (``slot_start``) and its buckets: vertex slots, the local degrees and
     folded intra-aggregate weights as the reference layout computes them
@@ -239,15 +243,27 @@ def slot_layout(g: Graph, v2a, counts, params: MultilevelFAParams,
     weights.  ``ref_start`` gives the first slots of the reference's own
     layout (``ref_slots`` slots in all): under ``x_precision='bf16'`` a unit
     CSR takes the bf16 gather where that layout's slab count pairs its
-    tiles; without it the gather never applies.  Host numpy, tensors on
-    ``g``'s device."""
+    tiles; without it the gather never applies.  ``vertices`` (ascending,
+    whole aggregates) lays out only those, ``slot_of_vertex`` then
+    listing theirs in that order (one process's shards of
+    ``parallel.sharded_ml``).  Host numpy, tensors on ``g``'s device."""
     dev = g.device
-    n = g.n
-    slot_of_vertex = vertex_slots(v2a, counts, slot_start)
+    s, r, w = g.to_coo_numpy()
+    if vertices is not None:
+        # the entries among them, in their order (an intra-aggregate
+        # entry has both ends in one aggregate)
+        local = np.full(g.n, -1, dtype=np.int64)
+        local[vertices] = np.arange(len(vertices))
+        keep = (local[s] >= 0) & (local[r] >= 0)
+        s, r, w = local[s[keep]], local[r[keep]], np.asarray(w)[keep]
+        v2a = np.asarray(v2a)[vertices]
+    n = v2a.size
+    slot_of_vertex = vertex_slots(v2a, np.bincount(v2a,
+                                                   minlength=counts.size),
+                                  slot_start)
     valid = np.zeros(n_slots, dtype=bool)
     valid[slot_of_vertex] = True
 
-    s, r, w = g.to_coo_numpy()
     both = v2a[s] == v2a[r]
     intra = both & (s != r)
     deg_np = np.bincount(s[both], weights=(np.asarray(w, np.float64)[both]
@@ -469,11 +485,9 @@ def bucket_repulsion(x, layout: RefineLayout, repel: float, eps: float, *,
             raise ValueError("sampled buckets need a generator")
         u = torch.rand((m_c, num_samples), generator=generator,
                        dtype=x.dtype, device=x.device)
-        at = 0
         for bi in bis:
             b = layout.buckets[bi]
-            ub = u[at: at + b.m_b]
-            at += b.m_b
+            ub = u[b.u_row: b.u_row + b.m_b]
             if ub.shape[0] < b.m_b:
                 ub = torch.cat([ub, ub.new_zeros((b.m_b - ub.shape[0],
                                                   num_samples))])

@@ -16,17 +16,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..graph.csr import Graph, from_edges
+from ..graph import csr
 from . import segment
 
 
-def coarsen_graph(g: Graph, vertex_to_agg, num_aggs: int) -> Graph:
+def coarsen_graph(g: csr.Graph, vertex_to_agg, num_aggs: int) -> csr.Graph:
     """A_c = P^T A P on the host, from ``g``'s host COO; the result keeps
     its host COO and lands on ``g``'s device."""
     s, r, w = g.to_coo_numpy()
     v2a = np.asarray(vertex_to_agg)
-    return from_edges(v2a[s], v2a[r], w, n=int(num_aggs), dtype=g.dtype,
-                      device=g.device)
+    return csr.from_edges(v2a[s], v2a[r], w, n=int(num_aggs),
+                          dtype=g.dtype, device=g.device)
 
 
 def sum_duplicates(s, r, w, n: int):
@@ -54,11 +54,12 @@ def coarsen_coo_device(senders, receivers, weights, vertex_to_agg,
                           weights[live], num_aggs)
 
 
-def coarsen_graph_device(g: Graph, vertex_to_agg, num_aggs: int) -> Graph:
+def coarsen_graph_device(g: csr.Graph, vertex_to_agg,
+                         num_aggs: int) -> csr.Graph:
     """A_c = P^T A P on ``g``'s device; the result has no host COO."""
     m = int(num_aggs)
     ns, nr, nw = coarsen_coo_device(g.senders, g.receivers, g.weights,
                                     torch.as_tensor(vertex_to_agg), m)
     indptr = torch.searchsorted(ns, torch.arange(m + 1, device=ns.device))
-    return Graph(indptr=indptr, senders=ns, receivers=nr, weights=nw, n=m,
-                 num_edges=int(ns.shape[0]))
+    return csr.Graph(indptr=indptr, senders=ns, receivers=nr, weights=nw,
+                     n=m, num_edges=int(ns.shape[0]))

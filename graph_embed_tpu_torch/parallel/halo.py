@@ -39,6 +39,14 @@ float32 (``torch.matmul`` with TF32 off), computed over the real rows
 vertices, in order -- in chunks whose shapes depend on n and the sample
 count alone, so the invariant mode's layouts are bitwise the same at any
 shard count.
+
+On a mesh that spans processes (``multihost.global_mesh``) a process
+holds the rows, edges and CSR of its own shards: the boundary pool is an
+all-gather of each process's export rows, the stratified sample rows an
+all-gather of each process's draws, the invariant ones an all-reduce of
+the rows each process owns (each has one owner: only zeros are added),
+the ring's hop between processes a send/recv pair, and the repulsion
+runs over the process's own real rows on the same chunk grid.
 """
 
 from __future__ import annotations
@@ -97,11 +105,14 @@ class HaloPlan:
         return (self.ndev * self.B_max * dim
                 + num_samples * (dim + 3))
 
-    def export_rows(self) -> np.ndarray:
-        """[ndev * B_max] int64 rows of the stacked coordinates that the
-        shards export, shard by shard: the boundary pool's gather."""
-        return (np.arange(self.ndev, dtype=np.int64)[:, None] * self.blk
-                + self.boundary_idx.astype(np.int64)).reshape(-1)
+    def export_rows(self, shards: range | None = None) -> np.ndarray:
+        """[shards * B_max] int64 rows that ``shards`` (every shard by
+        default) export, shard by shard, in the stacked coordinates of
+        those shards alone: the boundary pool's gather."""
+        shards = range(self.ndev) if shards is None else shards
+        return (np.arange(len(shards), dtype=np.int64)[:, None] * self.blk
+                + self.boundary_idx[shards.start: shards.stop].astype(
+                    np.int64)).reshape(-1)
 
 
 def build_halo_plan(g: Graph, ndev: int, *, block_multiple: int = 8,
@@ -167,6 +178,15 @@ def build_halo_plan(g: Graph, ndev: int, *, block_multiple: int = 8,
                     deg=deg, n_real=n_real)
 
 
+def _local_space(plan: HaloPlan, shards: range, rows, cols):
+    """Stacked [x | pool] indices of ``shards``' edges in the space of
+    those shards alone: their x rows first, then the whole pool."""
+    off = shards.start * plan.blk
+    pool = plan.ndev * plan.blk
+    return rows - off, np.where(cols < pool, cols - off,
+                                cols - pool + len(shards) * plan.blk)
+
+
 def _stacked_edges(plan: HaloPlan, senders, recv, weights,
                    local_only: bool):
     """Live edges of every shard over the stacked index spaces: global
@@ -200,8 +220,11 @@ class HaloCSR:
 
 
 def build_halo_csr(plan: HaloPlan, params: ForceAtlasParams, *,
-                   local_only: bool = False, device="cpu") -> HaloCSR:
-    """The tiled attraction plan of ``build_halo_tiles`` as one CSR.
+                   local_only: bool = False, device="cpu",
+                   shards: range | None = None) -> HaloCSR:
+    """The tiled attraction plan of ``build_halo_tiles`` as one CSR;
+    ``shards`` (one process's, ``ShardMesh.local_shards``) holds only
+    their rows, over their own x rows and the whole pool.
 
     Per-edge constants fold as in the flat tiled path, per shard, in
     float32.  linlog keeps every folded weight (kernel E).  Otherwise unit
@@ -221,15 +244,19 @@ def build_halo_csr(plan: HaloPlan, params: ForceAtlasParams, *,
             np.asarray(plan.deg[e], np.float32)[s_loc],
             use_weights=params.use_weights, delta=params.delta,
             nohubs=params.nohubs), np.float32))
-    n_rows = plan.ndev * plan.blk
+    unit = all(fe.size == 0 or bool((fe == 1.0).all()) for fe in folded)
+    shards = range(plan.ndev) if shards is None else shards
+    sel = slice(shards.start, shards.stop)
+    n_rows = len(shards) * plan.blk
     n_cols = n_rows if local_only else n_rows + plan.ndev * plan.B_max
-    rows, cols = np.concatenate(rows), np.concatenate(cols)
-    f = np.concatenate(folded) if folded else np.zeros(0, np.float32)
+    rows, cols = _local_space(plan, shards, np.concatenate(rows[sel]),
+                              np.concatenate(cols[sel]))
+    f = (np.concatenate(folded[sel]) if folded[sel]
+         else np.zeros(0, np.float32))
     if params.linlog:
         csr, _ = ES.build_csr(rows, cols, f, n_rows, n_cols, device=device)
         return HaloCSR(csr=csr, deg_w=None, linlog=True,
                        local_only=local_only)
-    unit = all(fe.size == 0 or bool((fe == 1.0).all()) for fe in folded)
     wt = None
     if not unit:
         keep = f != 0.0
@@ -243,7 +270,8 @@ def build_halo_csr(plan: HaloPlan, params: ForceAtlasParams, *,
 class _HaloStep:
     """One halo FA step over the stacked shards (the shard_map body of
     make_halo_fa_step, halo.py:418-568): ``step(x, fprev, ids)`` ->
-    (x', f), x and f [ndev * blk, dim] float32 on the mesh's device.
+    (x', f), x and f [shards * blk, dim] float32 on the mesh's device,
+    the rows of this process's shards (every shard in one process).
 
     ``ids`` are the iteration's sample rows: [ndev, samp_per] local
     indices (stratified: shard s draws from its own nr_s real rows,
@@ -260,7 +288,12 @@ class _HaloStep:
         if plan.ndev != mesh.ndev:
             raise ValueError(f"the plan has {plan.ndev} shards, the mesh "
                              f"{mesh.ndev}")
+        shards = mesh.local_shards
         if tiles is not None:
+            if tiles.csr.n_rows != len(shards) * plan.blk:
+                raise ValueError("the halo CSR holds other shards than this "
+                                 "process's (build_halo_csr(..., shards="
+                                 "mesh.local_shards))")
             if params.linlog != tiles.linlog:
                 raise ValueError("linlog needs the linlog halo CSR "
                                  "(build_halo_csr dispatches on "
@@ -277,27 +310,38 @@ class _HaloStep:
             tiles
         self.ndev, self.blk, self.n = plan.ndev, plan.blk, plan.n
         self.samp_per = max(params.num_negative_samples // plan.ndev, 1)
-        self.device = dev
-        rows = plan.ndev * plan.blk
+        self.device, self.comm, self.shards = dev, mesh.comm, shards
+        # this process's rows of the stacked coordinates
+        self.lo, self.hi = shards.start * plan.blk, shards.stop * plan.blk
+        rows = self.hi - self.lo
         self.deg_p1 = torch.from_numpy(
             plan.deg.reshape(-1).astype(np.float32)).to(dev) + 1.0
-        self.real = (torch.arange(rows, device=dev) < plan.n)[:, None]
+        self.deg_loc = self.deg_p1[self.lo: self.hi]
+        self.real = (torch.arange(self.lo, self.hi, device=dev)
+                     < plan.n)[:, None]
         self.n_real = torch.from_numpy(
             plan.n_real[:, 0].astype(np.int64)).to(dev)
-        self.bidx = torch.from_numpy(plan.export_rows()).to(dev)
-        self.ring = (OV.ring_groups(groups, plan, dev) if overlap else None)
+        self.bidx = torch.from_numpy(plan.export_rows(shards)).to(dev)
+        self.ring = (OV.ring_groups(groups, plan, dev, shards=shards,
+                                    comm=mesh.comm) if overlap else None)
         if tiles is None:
             # the portable path: per-edge gathers and the segment sum
             src = ((groups.local_senders, groups.local_recv,
                     groups.local_weights) if overlap else
                    (plan.senders_loc, plan.recv_idx, plan.weights))
-            r, c, w = _stacked_edges(plan, *src, local_only=overlap)
-            r, c = np.concatenate(r), np.concatenate(c)
+            r, c, w = (a[shards.start: shards.stop] for a in _stacked_edges(
+                plan, *src, local_only=overlap))
+            r, c = _local_space(plan, shards, np.concatenate(r),
+                                np.concatenate(c))
             self.edge_s = torch.from_numpy(r).to(dev)
             self.edge_r = torch.from_numpy(c).to(dev)
             self.edge_w = torch.from_numpy(
                 np.concatenate(w).astype(np.float32)).to(dev)
             self.edge_csr = segment.segment_csr(r, rows, device=dev)
+
+    def _gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every process's ``t`` in rank order (``t`` in one process)."""
+        return t if self.comm is None else self.comm.all_gather(t)
 
     def draw(self, generator: torch.Generator) -> torch.Tensor:
         """One iteration's sample ids from ``generator``."""
@@ -316,12 +360,12 @@ class _HaloStep:
             xcat = x                    # local edges index x only
         else:
             # the halo exchange: only the export rows are gathered
-            xcat = torch.cat([x, x[self.bidx]], dim=0)
+            xcat = torch.cat([x, self._gather(x[self.bidx])], dim=0)
         if self.tiles is None:
             diff = xcat[self.edge_r] - xcat[self.edge_s]
             dist = torch.clamp(torch.sqrt(torch.sum(diff * diff, dim=1)),
                                min=params.epsilon)
-            fa = F.attraction_fa(dist, self.edge_w, self.deg_p1[self.edge_s],
+            fa = F.attraction_fa(dist, self.edge_w, self.deg_loc[self.edge_s],
                                  linlog=params.linlog, delta=params.delta,
                                  nohubs=params.nohubs,
                                  use_weights=params.use_weights)
@@ -335,7 +379,8 @@ class _HaloStep:
         return params.attract * (y - x * self.tiles.deg_w[:, None])
 
     def _samples(self, x: torch.Tensor, ids: torch.Tensor):
-        """(xs, rows, weight * deg) of the iteration's sample set."""
+        """(xs, rows, weight * deg) of the iteration's sample set; ``x``
+        this process's rows, ``rows`` global."""
         if self.sample_mode == "invariant":
             K = self.params.num_negative_samples
             if tuple(ids.shape) != (K,):
@@ -344,6 +389,14 @@ class _HaloStep:
             rows = ids.to(self.device, torch.int64)
             w = torch.full((K,), 1.0, device=self.device) * (
                 torch.tensor(float(self.n), device=self.device) / K)
+            if self.comm is None:
+                return x[rows], rows, self.deg_p1[rows] * w
+            # each sample row has one owning process: the others add 0
+            own = (rows >= self.lo) & (rows < self.hi)
+            mine = x[torch.clamp(rows - self.lo, 0, self.hi - self.lo - 1)]
+            xs = self.comm.all_reduce(
+                torch.where(own[:, None], mine, torch.zeros_like(mine)))
+            return xs, rows, self.deg_p1[rows] * w
         else:
             shape = (self.ndev, self.samp_per)
             if tuple(ids.shape) != shape:
@@ -355,29 +408,33 @@ class _HaloStep:
             per = torch.full((self.samp_per,), 1.0, device=self.device)
             w = (per[None, :] * (self.n_real.to(torch.float32)
                                  / self.samp_per)[:, None]).reshape(-1)
-        return x[rows], rows, self.deg_p1[rows] * w
+            mine = rows.view(self.ndev, self.samp_per)[
+                self.shards.start: self.shards.stop].reshape(-1)
+        return self._gather(x[mine - self.lo]), rows, self.deg_p1[rows] * w
 
     def _repulsion(self, x: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
         """The gram-form sampled repulsion (halo.py:547-558) on the real
-        rows [0, n); the padding rows get 0."""
+        rows [0, n) of this process's rows ``x``, cut on the chunk grid
+        of all rows; the padding rows get 0."""
         eps = self.params.epsilon
         xs, rows_s, dw = self._samples(x, ids)
         sq_s = torch.sum(xs * xs, dim=1)
         out = torch.zeros_like(x)
         per = max(1, REP_MAX_PAIRS // max(xs.shape[0], 1))
-        for r0 in range(0, self.n, per):
-            xb = x[r0: min(r0 + per, self.n)]
+        lo, hi = self.lo, min(self.hi, self.n)
+        for r0 in range(lo - lo % per if lo < hi else hi, hi, per):
+            a, b = max(r0, lo), min(r0 + per, hi)
+            xb = x[a - lo: b - lo]
             d2 = (torch.sum(xb * xb, dim=1)[:, None] + sq_s[None, :]
                   - 2.0 * torch.matmul(xb, xs.T))
             dist = torch.clamp(torch.sqrt(torch.clamp(d2, min=0.0)), min=eps)
             wgt = dw[None, :] / (dist * dist * dist)
-            rows = torch.arange(r0, r0 + xb.shape[0], device=x.device)
+            rows = torch.arange(a, b, device=x.device)
             wgt = wgt.masked_fill(rows[:, None] == rows_s[None, :], 0.0)
             f = xb * torch.sum(wgt, dim=1, keepdim=True) - torch.matmul(
                 wgt, xs)
-            out[r0: r0 + xb.shape[0]] = (
-                (self.params.repel * self.deg_p1[r0: r0 + xb.shape[0]])
-                [:, None] * f)
+            out[a - lo: b - lo] = (
+                (self.params.repel * self.deg_p1[a:b])[:, None] * f)
         return out
 
     def __call__(self, x: torch.Tensor, fprev: torch.Tensor,
@@ -385,13 +442,13 @@ class _HaloStep:
         params = self.params
         att = self._attraction(x)
         if self.overlap:
-            fcr = OV.ring_cross_forces(x, self.deg_p1, self.ring, params)
+            fcr = OV.ring_cross_forces(x, self.deg_loc, self.ring, params)
             att = att + segment.segment_sum(fcr.view(-1, x.shape[1]),
                                             self.ring.csr)
         rep = self._repulsion(x, ids)
-        grav = F.gravity_force(x, self.deg_p1, params.gravity)
+        grav = F.gravity_force(x, self.deg_loc, params.gravity)
         f = torch.where(self.real, rep + att + grav, torch.zeros_like(x))
-        new = F.speed_update(x, f, fprev, self.deg_p1, ks=params.ks,
+        new = F.speed_update(x, f, fprev, self.deg_loc, ks=params.ks,
                              ksmax=params.ksmax, tolerate=params.tolerate)
         return torch.where(self.real, new, x), f
 
@@ -425,7 +482,9 @@ def halo_force_atlas(g: Graph, dim: int = 2, *, mesh: ShardMesh,
     False on the per-edge segment path, "auto" tiled from 100k edges on
     the card.  ``coords0`` warm-starts; otherwise U(-1, 1)^dim from a
     ``torch.Generator`` seeded with ``seed``, which also draws the samples,
-    unless ``sample_ids`` gives every iteration's ids (see ``_HaloStep``)."""
+    unless ``sample_ids`` gives every iteration's ids (see ``_HaloStep``).
+    On a mesh that spans processes every rank passes the same arguments,
+    steps its own shards' rows and returns every row."""
     params = params or ForceAtlasParams(repulsion="sampled")
     if params.repulsion != "sampled":
         raise ValueError("halo_force_atlas supports repulsion='sampled' "
@@ -440,8 +499,8 @@ def halo_force_atlas(g: Graph, dim: int = 2, *, mesh: ShardMesh,
                                boundary_multiple=128 if overlap else None)
     if tiled == "auto":
         tiled = g.num_edges >= TILED_MIN_EDGES and dev.type == "cuda"
-    tiles = (build_halo_csr(plan, params, local_only=overlap, device=dev)
-             if tiled else None)
+    tiles = (build_halo_csr(plan, params, local_only=overlap, device=dev,
+                            shards=mesh.local_shards) if tiled else None)
     step = make_halo_fa_step(mesh, plan, dim, params, overlap=overlap,
                              sample_mode=sample_mode, tiles=tiles)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
@@ -453,8 +512,9 @@ def halo_force_atlas(g: Graph, dim: int = 2, *, mesh: ShardMesh,
     x = torch.zeros((plan.ndev * plan.blk, dim), dtype=torch.float32,
                     device=dev)
     x[: g.n] = x0
+    x = x[step.lo: step.hi]
     fprev = torch.zeros_like(x)
     for it in range(iterations):
         ids = step.draw(gen) if sample_ids is None else sample_ids[it]
         x, fprev = step(x, fprev, ids)
-    return x[: g.n]
+    return step._gather(x)[: g.n]

@@ -22,8 +22,11 @@ receive from a block while the next block is in flight.
   F runs slot k on the compute stream.  Events order the two streams: F(k)
   waits for the copy that wrote slot k, and the copy out of slot k waits
   for slot k's data.  Slots are written once, and each holds exactly the
-  block that lands at that ring step, as on the TPU; a transport that puts
-  one shard on each card swaps only the copy.  The buffer is slot-major
+  block that lands at that ring step, as on the TPU.  On a mesh that
+  spans processes a process's buffer holds its own shards, and the one
+  hop that leaves it (its last shard's block to the next process's first)
+  is a send/recv pair (``multihost.Comm.shift``); the hops inside it stay
+  copies.  The buffer is slot-major
   (not the reference's per-device [D_PAD, B_max] slots) so that each ring
   step reads and writes one contiguous block.  On the CPU the same code
   runs the copies in order.
@@ -130,17 +133,19 @@ def build_overlap_groups(plan) -> OverlapGroups:
 
 @dataclasses.dataclass(frozen=True)
 class RingGroups:
-    """The groups on the device, slot-major, and what the ring needs.
+    """The groups on the device, slot-major, and what the ring needs: the
+    ring has ``ndev`` slots, and this process holds ``shards`` of its
+    shards (all of them in one process), whose groups these are.
 
     cs/cr: [slot, shard, ec] int32; cw/mask: [slot, shard, ec] float32
     (kernel F reads no mask; the plain version does); live: [slot, shard]
     int32, the live entries of each group, a prefix of it with mask 1 (the
-    rest is padding, mask 0); bidx: [ndev * B_max]
-    int64 rows of the stacked coordinates that each shard exports (slot 0
-    of the ring); csr: the live entries of the per-edge output ``[slot,
-    shard, ec, d]`` (flattened, slot-major) by global sender row, the
-    order in which the cross forces are summed; side: the CUDA stream of
-    the ring's forwards (None on the CPU)."""
+    rest is padding, mask 0); bidx: [shards * B_max] int64 rows of this
+    process's coordinates that its shards export (slot 0 of the ring); csr: the live entries of the per-edge output ``[slot,
+    shard, ec, d]`` (flattened, slot-major) by this process's sender row,
+    the order in which the cross forces are summed; side: the CUDA stream
+    of the ring's forwards (None on the CPU); comm: the mesh's
+    ``multihost.Comm`` where the ring spans processes."""
 
     cs: torch.Tensor
     cr: torch.Tensor
@@ -153,24 +158,30 @@ class RingGroups:
     blk: int
     b_max: int
     ec: int
+    shards: int
     side: torch.cuda.Stream | None = None
+    comm: object = None
 
     @property
     def live_edges(self) -> int:
         return self.csr.nnz
 
 
-def ring_groups(groups: OverlapGroups, plan, device) -> RingGroups:
-    """Put ``groups`` on ``device`` slot-major, with the export rows and
-    the summation CSR."""
+def ring_groups(groups: OverlapGroups, plan, device, *,
+                shards: range | None = None, comm=None) -> RingGroups:
+    """Put the groups of ``shards`` (every shard by default; one
+    process's with the mesh's ``comm``) on ``device`` slot-major, with
+    their export rows and summation CSR."""
     ndev, blk = plan.ndev, plan.blk
+    shards = range(ndev) if shards is None else shards
+    sel = slice(shards.start, shards.stop)
 
     def slot_major(a, dtype):
         return torch.from_numpy(np.ascontiguousarray(
-            np.swapaxes(a, 0, 1)).astype(dtype)).to(device)
+            np.swapaxes(a[sel], 0, 1)).astype(dtype)).to(device)
 
-    mask = np.swapaxes(groups.mask, 0, 1)            # [slot, shard, ec]
-    cs = np.swapaxes(groups.cs, 0, 1)
+    mask = np.swapaxes(groups.mask[sel], 0, 1)       # [slot, shard, ec]
+    cs = np.swapaxes(groups.cs[sel], 0, 1)
     counts = np.ascontiguousarray(np.count_nonzero(mask, axis=-1),
                                   dtype=np.int32)
     # kernel F reads neither the padding nor the mask of a live entry
@@ -180,23 +191,25 @@ def ring_groups(groups: OverlapGroups, plan, device) -> RingGroups:
                          "of it, with mask 1")
     live = (mask > 0) & (cs < blk)
     flat = np.flatnonzero(live)
-    shard = (flat // groups.ec_max) % ndev
+    shard = (flat // groups.ec_max) % len(shards)
     rows = shard.astype(np.int64) * blk + cs.reshape(-1)[flat]
     # a stable sort by row keeps each sender's entries in slot order
-    csr, _ = ES.build_csr(rows, flat, None, ndev * blk, live.size,
+    csr, _ = ES.build_csr(rows, flat, None, len(shards) * blk, live.size,
                           device=device)
     return RingGroups(cs=slot_major(groups.cs, np.int32),
                       cr=slot_major(groups.cr, np.int32),
                       cw=slot_major(groups.cw, np.float32),
                       mask=slot_major(groups.mask, np.float32),
                       live=torch.from_numpy(counts).to(device),
-                      bidx=torch.from_numpy(plan.export_rows()).to(device),
+                      bidx=torch.from_numpy(plan.export_rows(shards)).to(
+                          device),
                       csr=csr,
                       ndev=ndev, blk=blk, b_max=plan.B_max,
-                      ec=groups.ec_max,
+                      ec=groups.ec_max, shards=len(shards),
                       side=(torch.cuda.Stream(device)
                             if torch.device(device).type == "cuda"
-                            else None))
+                            else None),
+                      comm=comm)
 
 
 def slot_forces_plain(block, x, deg_p1, cs, cr, cw, mask, *, blk: int,
@@ -314,9 +327,9 @@ def _ring_launcher(x, deg_p1, ring: RingGroups, params: ForceAtlasParams,
     """Check kernel F's operands for every slot of ``ring`` once; returns
     ``launch(k)``, which runs slot k of ``buf`` [slot, shard, B_max, d] into
     ``out[k]`` ([slot, shard, ec, d]) unchecked."""
-    ndev, ec, d = ring.ndev, ring.ec, x.shape[1]
+    ndev, ec, d = ring.shards, ring.ec, x.shape[1]
     _check_operands(buf, x, deg_p1, (ring.cs, ring.cr, ring.cw), ring.live,
-                    out, lead=(ndev,), ndev=ndev, ec=ec, blk=ring.blk)
+                    out, lead=(ring.ndev,), ndev=ndev, ec=ec, blk=ring.blk)
     if buf.shape[-2] != ring.b_max:
         raise ValueError(f"kernel F's ring takes a [slot, shard, "
                          f"{ring.b_max}, d] slot buffer, got "
@@ -346,7 +359,7 @@ def ring_slot_forces(buf, x, deg_p1, ring: RingGroups,
     writes them into ``out`` [slot, shard, ec, d] (allocated if None) and
     returns it."""
     if out is None:
-        out = torch.empty((ring.ndev, ring.ndev, ring.ec, x.shape[1]),
+        out = torch.empty((ring.ndev, ring.shards, ring.ec, x.shape[1]),
                           dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         launch = _ring_launcher(x, deg_p1, ring, params, buf, out)
@@ -355,10 +368,13 @@ def ring_slot_forces(buf, x, deg_p1, ring: RingGroups,
     return out
 
 
-def _forward(buf: torch.Tensor, k: int) -> None:
-    """Slot k of shard s -> slot k + 1 of shard s + 1 (the ring's hop)."""
+def _forward(buf: torch.Tensor, k: int, comm=None) -> None:
+    """Slot k of shard s -> slot k + 1 of shard s + 1 (the ring's hop);
+    with ``comm`` this process's last shard's block goes to the next
+    process, and the previous process's comes in."""
     buf[k + 1, 1:].copy_(buf[k, :-1])
-    buf[k + 1, 0].copy_(buf[k, -1])
+    buf[k + 1, 0].copy_(buf[k, -1] if comm is None else comm.shift(
+        buf[k, -1]))
 
 
 def _ring(x, deg_p1, ring: RingGroups, params, slot_fn, side) -> torch.Tensor:
@@ -367,9 +383,9 @@ def _ring(x, deg_p1, ring: RingGroups, params, slot_fn, side) -> torch.Tensor:
     ``side`` is the CUDA stream of the forwards, or None to run everything
     in order."""
     ndev, d = ring.ndev, x.shape[1]
-    buf = torch.empty((ndev, ndev, ring.b_max, d), dtype=x.dtype,
+    buf = torch.empty((ndev, ring.shards, ring.b_max, d), dtype=x.dtype,
                       device=x.device)
-    out = torch.empty((ndev, ndev, ring.ec, d), dtype=x.dtype,
+    out = torch.empty((ndev, ring.shards, ring.ec, d), dtype=x.dtype,
                       device=x.device)
     torch.index_select(x, 0, ring.bidx, out=buf[0].view(-1, d))
     compute = slot_fn(x, deg_p1, ring, params, buf, out)
@@ -378,7 +394,7 @@ def _ring(x, deg_p1, ring: RingGroups, params, slot_fn, side) -> torch.Tensor:
         for k in range(ndev):
             compute(k)
             if k + 1 < ndev:
-                _forward(buf, k)
+                _forward(buf, k, ring.comm)
         return out
     comp = torch.cuda.current_stream(x.device)
     ready = torch.cuda.Event()
@@ -387,7 +403,7 @@ def _ring(x, deg_p1, ring: RingGroups, params, slot_fn, side) -> torch.Tensor:
         if k + 1 < ndev:
             side.wait_event(ready)           # slot k's data is there
             with torch.cuda.stream(side):
-                _forward(buf, k)
+                _forward(buf, k, ring.comm)
                 ready = torch.cuda.Event()
                 ready.record(side)           # slot k + 1 written
         compute(k)                           # overlaps the forward above

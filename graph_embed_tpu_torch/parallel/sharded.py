@@ -50,6 +50,14 @@ So 1 and 8 shards give the same layout bit for bit.  The per-step
 samples are drawn once from a ``torch.Generator`` and shared by every
 shard, as the reference shares one ``randint`` (:81, :624); torch cannot
 replay threefry, so ``sample_ids`` injects them.
+
+On a mesh that spans processes (``multihost.global_mesh``) each process
+builds and runs only its own shards' CSRs and vertex blocks: the shard
+sum is the local one followed by an all-reduce (exact, as above), the
+repulsion of its rows runs on the same chunks as the one-process step
+(whole chunks, the rows of other processes computed and dropped), and
+an all-gather re-replicates the updated blocks.  Every rank draws the
+same samples, so any split over processes gives the same bits too.
 """
 
 from __future__ import annotations
@@ -132,20 +140,23 @@ def align_shards(s, r, w, n_pad: int, n_devices: int, *,
     return sp, rp, wp
 
 
-def _shard_sum(parts: list) -> torch.Tensor:
-    """The partials added over the shards in shard order."""
+def _shard_sum(parts: list, mesh: ShardMesh) -> torch.Tensor:
+    """The partials of this process's shards added in shard order, then
+    over the processes (an all-reduce) where the mesh spans them."""
     out = parts[0]
     for p in parts[1:]:
         out = out + p
-    return out
+    return out if mesh.comm is None else mesh.comm.all_reduce(out)
 
 
-def _repulsion(x, deg_p1, n_real: int, params: ForceAtlasParams, ids):
+def _repulsion(x, deg_p1, n_real: int, params: ForceAtlasParams, ids,
+               rows: tuple[int, int] | None = None):
     """The gram-form repulsion of the real rows [0, n_real) (sharded.py:
     78-110, :622-652): against the shared sample ids under 'sampled',
     scaled by n_real / samples, else against every real row; ghost rows
     get 0.  Full float32 products (TF32 off: the gram identity cancels
-    for near pairs)."""
+    for near pairs).  ``rows`` = (lo, hi) returns only those rows
+    ([hi - lo, d]), each computed in the same chunk as for every row."""
     eps = params.epsilon
     sampled = params.repulsion == "sampled"
     if sampled:
@@ -158,9 +169,11 @@ def _repulsion(x, deg_p1, n_real: int, params: ForceAtlasParams, ids):
     xs = x[cols]
     degs = deg_p1[cols]
     sq_s = torch.sum(xs * xs, dim=1)
-    out = torch.zeros_like(x)
+    lo, hi = (0, x.shape[0]) if rows is None else rows
+    out = x.new_zeros((hi - lo, x.shape[1]))
     per = max(1, REP_MAX_PAIRS // max(int(cols.shape[0]), 1))
-    for r0 in range(0, n_real, per):
+    stop = min(hi, n_real)
+    for r0 in range(lo - lo % per if lo < stop else stop, stop, per):
         r1 = min(r0 + per, n_real)
         xb = x[r0:r1]
         d2 = (torch.sum(xb * xb, dim=1)[:, None] + sq_s[None, :]
@@ -173,7 +186,8 @@ def _repulsion(x, deg_p1, n_real: int, params: ForceAtlasParams, ids):
         rep = (params.repel * deg_p1[r0:r1])[:, None] * f
         if sampled:
             rep = rep * (n_real / int(cols.shape[0]))
-        out[r0:r1] = rep
+        a, b = max(r0, lo), min(r1, hi)
+        out[a - lo: b - lo] = rep[a - r0: b - r0]
     return out
 
 
@@ -183,10 +197,11 @@ class _Step:
 
     def __init__(self, mesh: ShardMesh, n_pad: int, dim: int,
                  params: ForceAtlasParams, n_real: int):
-        edge_sharding(mesh).blocks(n_pad)   # n_pad splits into vertex blocks
+        # this process's vertex blocks (n_pad must split into them)
+        self.lo, self.hi = edge_sharding(mesh).rows(n_pad)
         self.mesh, self.n_pad = mesh, n_pad
         self.params, self.n_real = params, n_real
-        self.real = (torch.arange(n_pad, device=mesh.device)
+        self.real = (torch.arange(self.lo, self.hi, device=mesh.device)
                      < n_real)[:, None]
 
     def draw(self, generator: torch.Generator):
@@ -198,13 +213,22 @@ class _Step:
                              generator=generator, device=self.mesh.device)
 
     def _update(self, coords, fprev, deg_p1, att, ids):
-        params = self.params
-        rep = _repulsion(coords, deg_p1, self.n_real, params, ids)
-        grav = F.gravity_force(coords, deg_p1, params.gravity)
-        f = torch.where(self.real, rep + att + grav, torch.zeros_like(coords))
-        new = F.speed_update(coords, f, fprev, deg_p1, ks=params.ks,
+        """The update of this process's vertex blocks (``fprev`` and the
+        returned forces are theirs), re-replicated (an all-gather where
+        the mesh spans processes)."""
+        params, lo, hi = self.params, self.lo, self.hi
+        x, dp = coords[lo:hi], deg_p1[lo:hi]
+        rep = _repulsion(coords, deg_p1, self.n_real, params, ids,
+                         rows=(lo, hi))
+        grav = F.gravity_force(x, dp, params.gravity)
+        f = torch.where(self.real, rep + att[lo:hi] + grav,
+                        torch.zeros_like(x))
+        new = F.speed_update(x, f, fprev, dp, ks=params.ks,
                              ksmax=params.ksmax, tolerate=params.tolerate)
-        return torch.where(self.real, new, coords), f
+        new = torch.where(self.real, new, x)
+        if self.mesh.comm is not None:
+            new = self.mesh.comm.all_gather(new)
+        return new, f
 
 
 @dataclasses.dataclass(frozen=True)
@@ -222,8 +246,9 @@ class ShardEdges:
 
 class _PortableStep(_Step):
     """The portable step (make_sharded_fa_step): ``step(coords, fprev,
-    edges, deg, ids)`` -> (coords', f) with coords, fprev [n_pad, dim]
-    and deg [n_pad] in ``dtype``; ``edges`` from ``shard_edges``."""
+    edges, deg, ids)`` -> (coords', f) with coords [n_pad, dim] and deg
+    [n_pad] in ``dtype``, fprev and f this process's vertex blocks
+    ([n_pad, dim] in one process); ``edges`` from ``shard_edges``."""
 
     def __init__(self, mesh, n_pad, e_pad, dim, params, n_real, dtype):
         super().__init__(mesh, n_pad, dim, params, n_real)
@@ -231,7 +256,7 @@ class _PortableStep(_Step):
 
     def shard_edges(self, s, r, w) -> ShardEdges:
         """The host edge arrays ([e_pad], split into equal blocks, one per
-        shard) as each shard's live edges and segment CSR."""
+        shard) as this process's shards' live edges and segment CSRs."""
         s, r, w = np.asarray(s), np.asarray(r), np.asarray(w)
         if s.shape[0] != self.e_pad:
             raise ValueError(f"the step takes {self.e_pad} edges, got "
@@ -265,7 +290,7 @@ class _PortableStep(_Step):
         b = edges.bounds
         att = _shard_sum([segment.segment_sum(per_edge[b[d]: b[d + 1]],
                                               csr)
-                          for d, csr in enumerate(edges.csrs)])
+                          for d, csr in enumerate(edges.csrs)], self.mesh)
         return self._update(coords, fprev, deg_p1, att, ids)
 
 
@@ -279,7 +304,8 @@ def make_sharded_fa_step(mesh: ShardMesh, n_pad: int, e_pad: int, dim: int,
 
 @dataclasses.dataclass(frozen=True)
 class ShardedTiles:
-    """The tiled attraction of every shard: ``csrs[d]`` holds shard d's
+    """The tiled attraction of ``ndev`` shards: ``csrs`` holds those of
+    ``shards`` (every shard, or one process's), the CSR of shard d its
     rows (its ``row_cuts`` slice of the residual edges) over the global
     [n_pad] vertex space, with the weights as the reference packs them
     (folded float32 under linlog, for kernel E).  ``deg_w_att`` [n_pad]
@@ -293,16 +319,14 @@ class ShardedTiles:
     deg_w_att: torch.Tensor
     n_pad: int
     packing: str
+    ndev: int
+    shards: range
     linlog: bool = False
     sender_block: int | None = None
     window: int | None = None
     n_pad_tiles: int | None = None
     dia_offsets: tuple = ()
     dia_w: torch.Tensor | None = None
-
-    @property
-    def ndev(self) -> int:
-        return len(self.csrs)
 
 
 def _fold(g: Graph, s, w, params: ForceAtlasParams | None) -> np.ndarray:
@@ -317,20 +341,31 @@ def _fold(g: Graph, s, w, params: ForceAtlasParams | None) -> np.ndarray:
         nohubs=params.nohubs), np.float32)
 
 
-def _shard_csrs(s, r, w, n_pad: int, n_devices: int, device, *,
+def _mesh_of(n_devices: int, mesh: ShardMesh | None, device) -> ShardMesh:
+    """``mesh`` (which must have ``n_devices`` shards), or one process's
+    mesh of ``n_devices`` on ``device``."""
+    if mesh is None:
+        return make_mesh(n_devices, device=device)
+    if mesh.ndev != n_devices:
+        raise ValueError(f"the mesh has {mesh.ndev} shards, not "
+                         f"{n_devices}")
+    return mesh
+
+
+def _shard_csrs(s, r, w, n_pad: int, mesh: ShardMesh, *,
                 bf16_gather: bool = False):
-    """(one CSR per shard over [n_pad] rows and columns, their row sums
-    added over the shards in shard order)."""
-    cuts = row_cuts(s, n_devices)
+    """(one CSR per shard of this process over [n_pad] rows and columns,
+    the row sums of every shard added in shard order)."""
+    cuts = row_cuts(s, mesh.ndev)
     csrs, sums = [], []
-    for d in range(n_devices):
+    for d in mesh.local_shards:
         lo, hi = int(cuts[d]), int(cuts[d + 1])
         csr, rs = ES.build_csr(s[lo:hi], r[lo:hi],
                                None if w is None else w[lo:hi], n_pad, n_pad,
-                               device=device, bf16_gather=bf16_gather)
+                               device=mesh.device, bf16_gather=bf16_gather)
         csrs.append(csr)
         sums.append(rs)
-    return tuple(csrs), _shard_sum(sums)
+    return tuple(csrs), _shard_sum(sums, mesh)
 
 
 def build_sharded_tiles(g: Graph, n_devices: int, *, weights=None,
@@ -338,9 +373,12 @@ def build_sharded_tiles(g: Graph, n_devices: int, *, weights=None,
                         window: int | None = None,
                         dia_min_count: int | None = 0,
                         params: ForceAtlasParams | None = None,
-                        device="cpu") -> ShardedTiles:
+                        device="cpu",
+                        mesh: ShardMesh | None = None) -> ShardedTiles:
     """The sender-sorted edge list cut into ``n_devices`` shards, one CSR
-    each over the global vertex space, on ``device`` (sharded.py:400-520).
+    each over the global vertex space, on ``device`` (sharded.py:400-520);
+    with ``mesh`` (of ``n_devices`` shards, on its device) only this
+    process's shards.
 
     ``params`` folds the attraction's constants into the weights (without
     it the raw weights are packed).  All-1.0 folded weights of at least
@@ -374,10 +412,10 @@ def build_sharded_tiles(g: Graph, n_devices: int, *, weights=None,
     rs, rr, rw, paired = TL.residual_edges(
         s, r, w, g.n, unit=unit, dia=dia, sender_block=sender_block,
         window=window)
-    dev = resolve(device)
+    mesh = _mesh_of(n_devices, mesh, device)
+    dev = mesh.device
     n_pad = round_up(max(n_pad_t, g.n), n_devices)
-    csrs, deg_w = _shard_csrs(rs, rr, rw, n_pad, n_devices, dev,
-                              bf16_gather=paired)
+    csrs, deg_w = _shard_csrs(rs, rr, rw, n_pad, mesh, bf16_gather=paired)
     extra = {}
     if dia is not None:
         dw = np.zeros((len(dia.offsets), n_pad), np.float32)
@@ -387,28 +425,34 @@ def build_sharded_tiles(g: Graph, n_devices: int, *, weights=None,
                      dia_w=torch.from_numpy(dw).to(dev))
     return ShardedTiles(csrs=csrs, deg_w_att=deg_w, n_pad=n_pad,
                         packing="unit" if unit else "bf16",
+                        ndev=n_devices, shards=mesh.local_shards,
                         sender_block=sender_block, window=window,
                         n_pad_tiles=n_pad_t, **extra)
 
 
 def build_sharded_edge_tiles(g: Graph, n_devices: int, *,
                              params: ForceAtlasParams | None = None,
-                             device="cpu") -> ShardedTiles:
+                             device="cpu",
+                             mesh: ShardMesh | None = None) -> ShardedTiles:
     """The linlog counterpart of ``build_sharded_tiles`` (sharded.py:
     340-385): every edge with its folded float32 weight, cut into shards,
-    for kernel E; no DIA plan (its rolls encode the linear form only)."""
+    for kernel E; no DIA plan (its rolls encode the linear form only).
+    ``mesh`` as there."""
     s, r, w = g.to_coo_numpy()
     w = np.asarray(_fold(g, s, w, params), np.float32)
-    dev = resolve(device)
+    mesh = _mesh_of(n_devices, mesh, device)
     n_pad = round_up(max(g.n, 1), n_devices)
-    csrs, _ = _shard_csrs(s, r, w, n_pad, n_devices, dev)
-    return ShardedTiles(csrs=csrs, deg_w_att=torch.zeros(n_pad, device=dev),
-                        n_pad=n_pad, packing="edge", linlog=True)
+    csrs, _ = _shard_csrs(s, r, w, n_pad, mesh)
+    return ShardedTiles(csrs=csrs,
+                        deg_w_att=torch.zeros(n_pad, device=mesh.device),
+                        n_pad=n_pad, packing="edge", ndev=n_devices,
+                        shards=mesh.local_shards, linlog=True)
 
 
 class _TiledStep(_Step):
     """The tiled step (make_sharded_fa_step_tiled): ``step(coords, fprev,
-    deg, ids)`` -> (coords', f), float32 [n_pad, dim] and [n_pad]."""
+    deg, ids)`` -> (coords', f), float32 [n_pad, dim] and [n_pad], fprev
+    and f this process's vertex blocks."""
 
     def __init__(self, mesh, tiles: ShardedTiles, dim, params, n_real):
         super().__init__(mesh, tiles.n_pad, dim, params, n_real)
@@ -419,14 +463,14 @@ class _TiledStep(_Step):
         if t.linlog:
             return _shard_sum([ES.linlog(x, csr, attract=params.attract,
                                          eps=params.epsilon)
-                               for csr in t.csrs])
+                               for csr in t.csrs], self.mesh)
         if params.x_precision == "bf16" and t.csrs[0].bf16_gather:
             xp = ES.pack_x_bf16(x)     # once for every shard's gather
             parts = [ES.spmv_bf16x(xp, csr, x.shape[1]) for csr in t.csrs]
         else:
             parts = [ES.spmv_windowed(x, csr, x_precision=params.x_precision)
                      for csr in t.csrs]
-        att = params.attract * (_shard_sum(parts)
+        att = params.attract * (_shard_sum(parts, self.mesh)
                                 - x * t.deg_w_att[:, None])
         if t.dia_offsets:
             # each vertex block's stencil rolls read x[i + o] of the
@@ -447,9 +491,10 @@ def make_sharded_fa_step_tiled(mesh: ShardMesh, tiles: ShardedTiles,
     returns (``ShardedTiledStep``, n_pad).  ``tiles`` from
     ``build_sharded_tiles`` (or ``build_sharded_edge_tiles`` under
     linlog) for this mesh, on its device."""
-    if tiles.ndev != mesh.ndev:
-        raise ValueError(f"the tiles have {tiles.ndev} shards, the mesh "
-                         f"{mesh.ndev}")
+    if tiles.ndev != mesh.ndev or tiles.shards != mesh.local_shards:
+        raise ValueError(f"the tiles hold shards {tiles.shards} of "
+                         f"{tiles.ndev}, the mesh's process "
+                         f"{mesh.local_shards} of {mesh.ndev}")
     if tiles.linlog != params.linlog:
         raise ValueError("linlog takes build_sharded_edge_tiles, the linear "
                          "form build_sharded_tiles")
@@ -481,7 +526,8 @@ def sharded_force_atlas(g: Graph, dim: int = 2, *,
     the card.  ``tiles`` passes a prebuilt plan for this mesh and params
     (``build_sharded_tiles(..., dia_min_count=None, params=params)`` or,
     under linlog, ``build_sharded_edge_tiles``); it implies the tiled
-    route."""
+    route.  On a mesh that spans processes every rank passes the same
+    arguments and returns the same coordinates."""
     params = params or ForceAtlasParams()
     dev = resolve(device)
     mesh = mesh or make_mesh(1, device=dev)
@@ -511,10 +557,10 @@ def sharded_force_atlas(g: Graph, dim: int = 2, *,
     if tiled:
         if tiles is None:
             tiles = (build_sharded_edge_tiles(g, ndev, params=params,
-                                              device=dev)
+                                              mesh=mesh)
                      if params.linlog else
                      build_sharded_tiles(g, ndev, dia_min_count=None,
-                                         params=params, device=dev))
+                                         params=params, mesh=mesh))
         step, n_pad = make_sharded_fa_step_tiled(mesh, tiles, dim, params,
                                                  g.n)
         dtype, args = torch.float32, ()

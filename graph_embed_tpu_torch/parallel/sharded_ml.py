@@ -25,6 +25,12 @@ back to back.  What must not depend on the shard count does not:
 
 So a level refined on 1 and on 8 shards is bitwise the same (the JAX
 package pins this, tests/test_sharded_ml.py:52).
+
+On a mesh that spans processes (``multihost.global_mesh``) each process
+lays out and refines only its own shards' slots (whole aggregates, so no
+exchange during the iterations; every rank draws the whole start and
+every sampled class's uniforms, and keeps its part), and one all-gather
+of the placed slots, device major, gives every rank the level.
 """
 
 from __future__ import annotations
@@ -48,27 +54,37 @@ from .mesh import ShardMesh
 class ShardedRefineLayout:
     """The device-major slot layout of one level over ``ndev`` shards.
 
-    ``layout`` is a RefineLayout over the whole stacked slot space (shard
-    d owns slots [d * n_slots_local, (d + 1) * n_slots_local)); its
-    buckets are one per (shard, class), shard major, ghost aggregates
+    ``layout`` is a RefineLayout over the stacked slot space of
+    ``shards`` (every shard, or one process's: shard d owns slots
+    [(d - shards.start) * n_slots_local, ...) of it, n_slots_local each);
+    its buckets are one per (shard, class), shard major, ghost aggregates
     carrying the id ``num_aggs`` and count 0.  ``members`` sums each
     aggregate's member slots in slot order; ``agg_of_slot`` [n_slots]
-    (ghost slots ``num_aggs``)."""
+    (ghost slots ``num_aggs``).  ``vertices`` are the laid-out vertices
+    (None: every vertex), ``global_slots`` [n] each vertex's slot in the
+    slot space of every shard."""
 
     ndev: int
     n_slots_local: int
     layout: MT.RefineLayout
     members: ES.EdgeCSR
     agg_of_slot: torch.Tensor
+    shards: range
+    vertices: torch.Tensor | None
+    global_slots: torch.Tensor
 
 
 def prepare_refine_sharded(g: Graph, part: Partition,
-                           params: MultilevelFAParams,
-                           ndev: int) -> ShardedRefineLayout:
+                           params: MultilevelFAParams, ndev: int, *,
+                           shards: range | None = None
+                           ) -> ShardedRefineLayout:
     """Deal the aggregates of one level to ``ndev`` shards and build the
-    stacked slot layout (host numpy, tensors on ``g``'s device).  The
-    reference's sharded tiles are never paired, so no bf16 gather."""
+    stacked slot layout of ``shards`` (every shard by default; one
+    process's, ``ShardMesh.local_shards``) (host numpy, tensors on
+    ``g``'s device).  The reference's sharded tiles are never paired, so
+    no bf16 gather."""
     dev = g.device
+    shards = range(ndev) if shards is None else shards
     v2a = part.vertex_to_agg_numpy()
     m = part.num_aggs
     counts = np.bincount(v2a, minlength=m)
@@ -78,34 +94,44 @@ def prepare_refine_sharded(g: Graph, part: Partition,
     nsl = sum(q * S for (S, _), q in zip(classes, qs))
 
     slot_start = np.zeros(m, dtype=np.int64)
+    mine = np.zeros(m, dtype=bool)
     buckets = []
     for d in range(ndev):
         base = d * nsl
         for (S, aggs), q in zip(classes, qs):
             ids = aggs[d * q: (d + 1) * q]
             slot_start[ids] = base + np.arange(ids.size) * S
-            padded = np.full(q, m, dtype=np.int64)
-            padded[: ids.size] = ids
-            cnt = np.zeros(q, dtype=np.int64)
-            cnt[: ids.size] = counts[ids]
-            buckets.append(MT.Bucket(
-                base=int(base), m_b=q, S=S,
-                aggs=torch.from_numpy(padded).to(dev),
-                counts=torch.from_numpy(cnt).to(dev),
-                sampled=thr > 0 and S >= thr))
+            if d in shards:
+                mine[ids] = True
+                padded = np.full(q, m, dtype=np.int64)
+                padded[: ids.size] = ids
+                cnt = np.zeros(q, dtype=np.int64)
+                cnt[: ids.size] = counts[ids]
+                buckets.append(MT.Bucket(
+                    base=int(base - shards.start * nsl), m_b=q, S=S,
+                    aggs=torch.from_numpy(padded).to(dev),
+                    counts=torch.from_numpy(cnt).to(dev),
+                    sampled=thr > 0 and S >= thr, u_row=d * q))
             base += q * S
-    n_slots = ndev * nsl
-    layout = MT.slot_layout(g, v2a, counts, params, slot_start, n_slots,
-                            buckets)
+    global_slots = MT.vertex_slots(v2a, counts, slot_start)
+    n_slots = len(shards) * nsl
+    vertices = np.flatnonzero(mine[v2a]) if len(shards) < ndev else None
+    layout = MT.slot_layout(g, v2a, counts, params,
+                            slot_start - shards.start * nsl, n_slots,
+                            buckets, vertices=vertices)
     agg_of_slot = np.full(n_slots, m, dtype=np.int64)
-    agg_of_slot[layout.slot_of_vertex.cpu().numpy()] = v2a
+    agg_of_slot[layout.slot_of_vertex.cpu().numpy()] = (
+        v2a if vertices is None else v2a[vertices])
     # each aggregate's member slots, in slot order (a stable sort by id)
     live = np.flatnonzero(agg_of_slot < m)
     members, _ = ES.build_csr(agg_of_slot[live], live, None, m, n_slots,
                               device=dev)
     return ShardedRefineLayout(
         ndev=ndev, n_slots_local=nsl, layout=layout, members=members,
-        agg_of_slot=torch.from_numpy(agg_of_slot).to(dev))
+        agg_of_slot=torch.from_numpy(agg_of_slot).to(dev), shards=shards,
+        vertices=(None if vertices is None
+                  else torch.from_numpy(vertices).to(dev)),
+        global_slots=torch.from_numpy(global_slots).to(dev))
 
 
 def _place_into_parents(x, shl: ShardedRefineLayout, coords_A, r_A,
@@ -139,9 +165,10 @@ def make_refine_sharded_step(mesh: ShardMesh, shl: ShardedRefineLayout,
     on the stacked slot coordinates ``x`` [n_slots, dim] with no exchange
     between shards, then the epilogue, and returns the placed slots
     (ghosts 0)."""
-    if shl.ndev != mesh.ndev:
-        raise ValueError(f"the layout has {shl.ndev} shards, the mesh "
-                         f"{mesh.ndev}")
+    if shl.ndev != mesh.ndev or shl.shards != mesh.local_shards:
+        raise ValueError(f"the layout holds shards {shl.shards} of "
+                         f"{shl.ndev}, the mesh's process "
+                         f"{mesh.local_shards} of {mesh.ndev}")
 
     def step(x, pull_slot, coords_A, r_A, generator):
         if x.shape != (shl.layout.n_slots, dim):
@@ -166,7 +193,8 @@ def refine_level_sharded(g: Graph, part: Partition, coords_A, r_A, dim: int,
     The start is U(-1, 1)^dim per vertex from a generator seeded with
     ``seed`` (which also draws the sampled classes' partners), or
     ``coords0``: [n, dim] warm-start offsets in the local aggregate frame.
-    The same seed gives the same layout at any shard count."""
+    The same seed gives the same layout at any shard count, and on a mesh
+    that spans processes every rank returns it."""
     params = params or MultilevelFAParams()
     if params.linlog:
         raise NotImplementedError(
@@ -177,7 +205,8 @@ def refine_level_sharded(g: Graph, part: Partition, coords_A, r_A, dim: int,
     dev = mesh.device
     g, part = g.to(dev), part.to(dev)
     if layout is None:
-        layout = prepare_refine_sharded(g, part, params, mesh.ndev)
+        layout = prepare_refine_sharded(g, part, params, mesh.ndev,
+                                        shards=mesh.local_shards)
     step = make_refine_sharded_step(mesh, layout, dim, params, iterations)
     lay = layout.layout
     eps = params.epsilon
@@ -185,15 +214,20 @@ def refine_level_sharded(g: Graph, part: Partition, coords_A, r_A, dim: int,
     r_A = torch.as_tensor(r_A).to(dev, torch.float32)
     pull_v = external_pull(g, part, coords_A, pull=params.pull, eps=eps,
                            csr=lay.sender_csr)
-    pull_slot = torch.zeros((lay.n_slots, dim), dtype=torch.float32,
-                            device=dev)
-    pull_slot[lay.slot_of_vertex] = pull_v.to(torch.float32)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     if coords0 is None:
-        c0 = torch.rand((lay.n, dim), generator=gen, dtype=torch.float32,
+        c0 = torch.rand((g.n, dim), generator=gen, dtype=torch.float32,
                         device=dev) * 2.0 - 1.0
     else:
         c0 = torch.as_tensor(coords0).to(dev, torch.float32)
+    if layout.vertices is not None:
+        pull_v, c0 = pull_v[layout.vertices], c0[layout.vertices]
+    pull_slot = torch.zeros((lay.n_slots, dim), dtype=torch.float32,
+                            device=dev)
+    pull_slot[lay.slot_of_vertex] = pull_v.to(torch.float32)
     x = torch.zeros((lay.n_slots, dim), dtype=torch.float32, device=dev)
     x[lay.slot_of_vertex] = c0
-    return step(x, pull_slot, coords_A, r_A, gen)[lay.slot_of_vertex]
+    placed = step(x, pull_slot, coords_A, r_A, gen)
+    if mesh.comm is not None:
+        placed = mesh.comm.all_gather(placed)
+    return placed[layout.global_slots]

@@ -220,7 +220,8 @@ def test_embed_graph_packs_levels_into_parent_balls():
 
 
 def test_unported_options_raise():
-    """Only linlog refinement with a mesh raises, under either sharding
+    """Only linlog refinement with a mesh raises, under either sharding,
+    where a level of at least mesh_min_n vertices would refine sharded
     (it names reference fault 8: the reference's sharded refinement drops
     the log term), before any level runs; the default sharding with a
     mesh runs (the replicated design).  The slot-space and sharded
@@ -238,7 +239,7 @@ def test_unported_options_raise():
     for sharding in ("replicated", "halo"):
         with pytest.raises(NotImplementedError, match="reference fault 8"):
             gp.embed_graph(g, 2, device="cpu", mesh=mesh, sharding=sharding,
-                           refine_params=linlog)
+                           mesh_min_n=1, refine_params=linlog)
     part = gp.partition_hierarchy(g, 0.1).levels[0]
     cA, rA = torch.zeros((part.num_aggs, 2)), torch.ones(part.num_aggs)
     with pytest.raises(NotImplementedError, match="portable refinement"):

@@ -368,7 +368,8 @@ def test_embed_halo_mesh_is_shard_count_invariant(rng):
 def test_embed_mesh_options(rng):
     """The JAX driver's ValueErrors (unknown sharding, a bad base_order);
     the default sharding runs the replicated base case, and linlog
-    refinement with a mesh still raises (reference fault 8)."""
+    refinement with a mesh still raises where a level of at least
+    mesh_min_n vertices would refine sharded (reference fault 8)."""
     _, g = _graphs(rng, 120)
     mesh = make_mesh(2, device=CPU)
     with pytest.raises(ValueError, match="sharding"):
@@ -376,8 +377,11 @@ def test_embed_mesh_options(rng):
     out = gp.embed([g], [], 2, device=CPU, mesh=mesh, mesh_min_n=1,
                    base_iterations=3)
     assert out.shape == (g.n, 2) and bool(torch.isfinite(out).all())
+    res = gp.partition_hierarchy(g, 0.25, emit_graphs=True)
+    assert res.levels
     with pytest.raises(NotImplementedError, match="reference fault 8"):
-        gp.embed([g], [], 2, device=CPU, mesh=mesh,
+        gp.embed([g] + res.coarse_graphs, res.levels, 2, device=CPU,
+                 mesh=mesh, mesh_min_n=1,
                  refine_params=gp.MultilevelFAParams(linlog=True))
     with pytest.raises(ValueError, match="base_order"):
         gp.embed([g], [], 2, device=CPU, mesh=mesh, mesh_min_n=1,
@@ -386,6 +390,44 @@ def test_embed_mesh_options(rng):
     with pytest.raises(ValueError, match="sampled"):
         PH.halo_force_atlas(g, 2, mesh=mesh, device=CPU,
                             params=ForceAtlasParams(repulsion="gram"))
+
+
+def test_embed_mesh_linlog_below_mesh_min_n():
+    """A mesh with linlog refinement where no level reaches mesh_min_n:
+    every level refines on the portable route (the log term), as the
+    reference's driver does with its mesh (driver.py:257-278).  The port
+    equals its embed without a mesh bit for bit, and JAX's embed with a
+    mesh to 2e-3 of the extent (the class of
+    test_torch_embed_options.py:test_portable_and_linlog_embeds_match_jax,
+    same hierarchy and warm start, so neither side draws)."""
+    from graph_embed_tpu.graph import synth as jsynth
+
+    gj = jsynth.mesh3d(6)
+    res = gt.partition_hierarchy(gj, 0.1, emit_graphs=True)
+    coords0 = np.random.default_rng(5).uniform(
+        -1, 1, (gj.n, 3)).astype(np.float32)
+    linlog = dict(base_params=ForceAtlasParams(linlog=True),
+                  refine_params=MultilevelFAParams(linlog=True))
+    kw = dict(base_iterations=100, refine_iterations=5)
+    want = np.asarray(gt.embed([gj] + res.coarse_graphs, res.levels, 3,
+                               coords0=jnp.asarray(coords0),
+                               refine_backend="portable", mesh=jmesh(2),
+                               **linlog, **kw))
+    graphs, parts = interop.hierarchy(
+        [(*x.to_coo_numpy(), x.n) for x in [gj] + res.coarse_graphs],
+        [(p.vertex_to_agg_numpy(), p.num_aggs) for p in res.levels])
+    assert max(x.n for x in graphs) < 65536
+    pkw = dict(device=CPU, coords0=torch.from_numpy(coords0),
+               base_params=gp.ForceAtlasParams(linlog=True),
+               refine_params=gp.MultilevelFAParams(linlog=True), **kw)
+    metrics = gp.MetricsLogger()
+    got = gp.embed(graphs, parts, 3, mesh=make_mesh(2, device=CPU),
+                   metrics=metrics, **pkw)
+    assert {r["route"] for r in metrics.records
+            if r["phase"] == "refine"} == {"portable"}
+    assert torch.equal(got, gp.embed(graphs, parts, 3, **pkw))
+    err = np.abs(got.numpy() - want).max()
+    assert err <= 2e-3 * np.abs(want).max(), err
 
 
 def test_native_sources_live_in_the_port():
