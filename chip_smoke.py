@@ -149,13 +149,36 @@ Phases, one JSON line each:
   embedder  ``cli embedder`` on mesh3d(128)'s pairs as an adjlist (the
             native parser; coords.temp finite, part.temp reading back to
             the printed level sizes), and on the ring of cliques with a
-            plot.html of one point per vertex.
+            plot.html of one point per vertex;
+  lj scale  the power-law pipeline at LiveJournal scale through its driver,
+            ``scripts/lj_scale_run_torch.py``: its prep stage (rmat(22, 8,
+            seed=1) rebuilt with unit weights, the native partition and its
+            emitted Galerkin chain, host work only) starts in the background
+            after the build, from an empty cache; here ``all 22 8`` runs
+            the embed on that cache in a subprocess.  Levels [2009212, 72647,
+            5532, 1630] with entries [65244308, 46723835, 2089398, 1630] and
+            Q within 1e-4 of 0.0256 (the JAX record, BENCHMARKS.md:391),
+            sampled buckets in level 0's refinement, kernels A and B in the
+            refine spans, every level finite inside its parent balls, layout
+            stress within 10% of the JAX record's 0.1769; per-phase seconds,
+            spans with their launches, peak device memory.  Then kernel A on
+            level 0's slot and sender CSRs (hub rows included) and level 1's
+            slot CSR, and kernel B on every exact size class of levels 0 and
+            1, against their plain versions (folded into the summary line's
+            errors);
+  drivers   ``examples/staged_configs_torch.py`` 1-4 (flat FA with gram
+            repulsion, the mesh2d(224) multilevel embed, the tiled step on
+            the 200k-vertex power-law graph, the sharded step on the 1M-vertex
+            one over this card) and ``examples/quickstart_torch.py``, each in
+            a subprocess: its record with ``finite`` true, and its launches
+            (kernel D in config 3).
 Each path (main, entry, flat per graph, linlog, lj per plan, bf16 embed,
 portable embed, linlog embed, halo per graph, the sharded embed, the
 replicated pipeline and each replicated flat run, each rank's three
 paths, the device hierarchy, the device chain, the card-only embed) is
 driven with the launch counts set to 0 just before it and read just
-after; the CLI's subprocesses report their own.
+after; the subprocesses (the CLI, the LJ-scale driver, the staged configs
+and the quickstart) report their own.
 Then the nvidia-smi line, the kernel summary as one JSON object (per
 kernel: launches on its path, error, ms on the card alone, host_ms to
 enqueue it, and plain ms as measured, the
@@ -210,6 +233,20 @@ MP_RANKS = 2
 MP_DIR = os.path.join(ROOT, "graph_embed_tpu_torch", "_build", "smoke",
                       "multiprocess")
 MP_TIMEOUT = 300
+# the LJ-scale phase: scripts/lj_scale_run_torch.py on rmat(22, 8, seed=1)
+# with unit weights, its cache directory, the JAX record's hierarchy, Q and
+# stress (BENCHMARKS.md:380-396), the stress gap allowed (the two random
+# streams differ), and the seconds its stages may take
+LJ_SCALE = ("22", "8")
+LJ_SCALE_CACHE = os.path.join(ROOT, ".lj_cache", "torch", "rmat22_8")
+LJ_SCALE_LEVELS = [2009212, 72647, 5532, 1630]
+LJ_SCALE_ENTRIES = [65244308, 46723835, 2089398, 1630]
+LJ_SCALE_Q = 0.0256
+LJ_SCALE_STRESS = 0.1769
+LJ_SCALE_STRESS_GAP = 0.10
+LJ_SCALE_TIMEOUT = 600
+# the staged configs and the quickstart: the seconds each may take
+DRIVER_TIMEOUT = 300
 # the profile phase's trace directory
 TRACE_DIR = os.path.join(ROOT, "chiprun_out", "chip_smoke_trace")
 # the card's peaks for the bounds (NVIDIA's data sheet, H100 SXM at
@@ -2581,6 +2618,212 @@ def phase_embedder(g, dev) -> None:
          launches=launches, **times)
 
 
+def start_lj_prep():
+    """Start the LJ-scale pipeline's prep stage (generation and native
+    partition: host work only) in the background from an empty cache, so
+    it overlaps the phases before ``phase_lj_scale``; stopped at exit."""
+    import atexit
+    import shutil
+
+    shutil.rmtree(LJ_SCALE_CACHE, ignore_errors=True)
+    work = os.path.join(ROOT, "graph_embed_tpu_torch", "_build", "smoke")
+    os.makedirs(work, exist_ok=True)
+    log = open(os.path.join(work, "lj_prep.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "scripts/lj_scale_run_torch.py", "prep",
+         *LJ_SCALE], cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, log
+
+
+def json_lines(text: str) -> list:
+    return [json.loads(ln) for ln in text.splitlines() if ln.startswith("{")]
+
+
+def phase_lj_scale(torch, dev, smi: str, prep) -> dict:
+    """The power-law pipeline at LiveJournal scale through its driver:
+    ``scripts/lj_scale_run_torch.py all 22 8`` in a subprocess, once the
+    background prep has cached the graph and its hierarchy.  The hierarchy
+    must be the JAX record's (levels, entries, Q), level 0's refinement
+    must hold sampled buckets, kernels A and B must launch in the refine
+    spans, every level must lie finite inside its parent balls, and the
+    layout stress must lie within LJ_SCALE_STRESS_GAP of the JAX record's.
+    Then kernels A and B are held against their plain versions at the
+    pipeline's shapes (``lj_scale_holds``, whose worst errors it
+    returns)."""
+    proc, log = prep
+    t0 = time.perf_counter()
+    rc = proc.wait(timeout=LJ_SCALE_TIMEOUT)
+    log.close()
+    prep_wait = time.perf_counter() - t0
+    with open(log.name) as f:
+        prep_log = f.read()
+    require(rc == 0, "lj_scale_run_torch.py prep exits 0: "
+            + prep_log[-2000:])
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "scripts/lj_scale_run_torch.py", "all", *LJ_SCALE],
+        cwd=ROOT, capture_output=True, text=True, timeout=LJ_SCALE_TIMEOUT)
+    wall = time.perf_counter() - t0
+    require(run.returncode == 0, "lj_scale_run_torch.py all exits 0: "
+            + run.stderr[-3000:])
+    lines = json_lines(run.stdout)
+    rec = lines[-1]
+    by = {}
+    for ln in lines[:-1]:
+        by.setdefault(ln["phase"], []).append(ln)
+    require(rec["n"] == LJ_SCALE_LEVELS[0]
+            and rec["level_sizes"] == LJ_SCALE_LEVELS,
+            f"rmat(22, 8) levels {rec['level_sizes']}")
+    require(rec["level_edges"] == LJ_SCALE_ENTRIES,
+            f"rmat(22, 8) level entries {rec['level_edges']}")
+    require(abs(rec["modularity"] - LJ_SCALE_Q) <= 1e-4,
+            f"rmat(22, 8) Q {rec['modularity']}")
+    buckets = {b["level"]: b for b in by["buckets"]}
+    require(len(buckets[0]["sampled"]) > 0,
+            "level 0's refinement holds sampled buckets")
+    on_refine = {}
+    for sp in by["span"]:
+        if sp["span"] == "refine":
+            for k, v in sp["launches"].items():
+                on_refine[k] = on_refine.get(k, 0) + v
+    require(sum(v for k, v in on_refine.items()
+                if k.startswith("edge_spmm[")) > 0
+            and on_refine.get("bucket_repulsion", 0) > 0,
+            f"kernels A and B launched in the refine spans ({on_refine})")
+    balls = by["balls"][0]["levels"]
+    require(sorted(balls) == [str(l) for l in range(len(LJ_SCALE_LEVELS)
+                                                    - 1)],
+            "every refined level checked against its parent balls")
+    for level, b in balls.items():
+        require(b["finite"] and b["excess"] <= b["slack"],
+                f"level {level} finite inside its parent balls ({b})")
+    require(rec["coords_finite"] is True, "finite coordinates")
+    stress = by["stress"][0]["stress"]
+    require(abs(stress - LJ_SCALE_STRESS) <= LJ_SCALE_STRESS_GAP
+            * LJ_SCALE_STRESS, f"layout stress {stress} within "
+            f"{LJ_SCALE_STRESS_GAP:.0%} of the JAX record's "
+            f"{LJ_SCALE_STRESS}")
+    memory = by["memory"][0]
+    emit(phase="lj scale", nvidia_smi=smi, workload=rec["workload"],
+         n=rec["n"], level_sizes=rec["level_sizes"],
+         level_entries=rec["level_edges"], modularity=rec["modularity"],
+         base_iterations=rec["base_iterations"],
+         gen_seconds=rec["gen_seconds"],
+         partition_seconds=rec["partition_seconds"],
+         galerkin_seconds=rec["galerkin_seconds"],
+         prep_wait_seconds=prep_wait, embed_seconds=rec["embed_seconds"],
+         stress_seconds=rec["stress_seconds"], run_seconds=wall,
+         spans=[{k: v for k, v in sp.items() if k != "phase"}
+                for sp in by["span"]],
+         buckets=by["buckets"], ball_excess=balls,
+         max_memory_allocated=memory["max_memory_allocated"],
+         launches=memory["launches"], refine_launches=on_refine,
+         layout_stress=stress, jax_record_stress=LJ_SCALE_STRESS)
+    return lj_scale_holds(torch, dev)
+
+
+def lj_scale_holds(torch, dev) -> dict:
+    """Kernels A and B against their plain versions at the LJ-scale
+    pipeline's shapes, on the cache its run left: kernel A on level 0's
+    slot CSR (unit) and its sender CSR (the cut-edge pull), both with hub
+    rows, and on level 1's slot CSR (weighted); kernel B on every exact
+    size class of levels 0 and 1.  Returns each kernel's worst
+    (max_abs_err, max_err_over_scale) for the summary line."""
+    import dataclasses
+    import importlib.util
+
+    from graph_embed_tpu_torch.forceatlas import multilevel_tiled as MT
+    from graph_embed_tpu_torch.ops import edge_spmm as ES
+    from graph_embed_tpu_torch.utils.params import MultilevelFAParams
+
+    spec = importlib.util.spec_from_file_location(
+        "lj_scale_run_torch", os.path.join(ROOT, "scripts",
+                                           "lj_scale_run_torch.py"))
+    driver = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(driver)
+    t0 = time.perf_counter()
+    graphs, parts, _ = driver.load_cache(*map(int, LJ_SCALE))
+    params = MultilevelFAParams()
+    gen = torch.Generator(device=dev).manual_seed(11)
+    worst = {}
+
+    def held(kernel, err_ratio):
+        prev = worst.get(kernel, (0.0, 0.0))
+        worst[kernel] = (max(err_ratio[0], prev[0]),
+                         max(err_ratio[1], prev[1]))
+
+    def hold_a(csr, x, **fields):
+        abs_csr = (csr if csr.w is None
+                   else dataclasses.replace(csr, w=csr.w.abs()))
+        got = ES.spmv_cuda(x, csr)
+        want = ES.spmv_plain(x, csr)
+        scale = ES.spmv_plain(x.abs(), abs_csr)
+        torch.cuda.synchronize()
+        name = f"edge_spmm[{csr.kind}]"
+        held(name, hold(name, got, want, scale, path="lj scale",
+                        rows=csr.n_rows, nnz=csr.nnz,
+                        hub_rows=int(csr.hub_rows.numel()), **fields))
+
+    for level in (0, 1):
+        g, part = graphs[level].to(dev), parts[level].to(dev)
+        layout = MT.prepare_refine(g, part, params)
+        x = torch.rand((layout.n_slots, 3), generator=gen, device=dev) * 2 - 1
+        x = torch.where(layout.valid_slot[:, None], x, torch.zeros_like(x))
+        hold_a(layout.csr, x, level=level, table="slot CSR")
+        if level == 0:
+            xs = (torch.rand((layout.sender_csr.n_cols, 3), generator=gen,
+                             device=dev) * 2 - 1)
+            hold_a(layout.sender_csr, xs, level=level,
+                   table="sender (cut-edge pull)")
+        got = MT.exact_repulsion_cuda(x, layout, params.repel,
+                                      params.epsilon)
+        want = MT.exact_repulsion_plain(x, layout, params.repel,
+                                        params.epsilon)
+        scale = MT.exact_repulsion_plain(x, layout, params.repel,
+                                         params.epsilon, absolute=True)
+        torch.cuda.synchronize()
+        for b in layout.buckets:
+            if not b.sampled:
+                sl = b.slots
+                held("bucket_repulsion", hold(
+                    "bucket_repulsion", got[sl], want[sl], scale[sl],
+                    path="lj scale", level=level, S=b.S, aggregates=b.m_b))
+        del g, part, layout, x, got, want, scale
+    emit(phase="lj scale holds", seconds=time.perf_counter() - t0,
+         worst={k: list(v) for k, v in worst.items()})
+    return worst
+
+
+def phase_drivers(dev) -> None:
+    """``examples/staged_configs_torch.py`` 1-4 and
+    ``examples/quickstart_torch.py`` on the card, each in a subprocess:
+    exit 0 and ``finite`` in its record; config 3 must launch kernel D
+    (its tiled step), every run some kernel of the port."""
+    work = os.path.join(ROOT, "graph_embed_tpu_torch", "_build", "smoke")
+    os.makedirs(work, exist_ok=True)
+    runs = [(f"staged config {k}", ["examples/staged_configs_torch.py",
+                                    str(k)]) for k in (1, 2, 3, 4)]
+    runs.append(("quickstart", ["examples/quickstart_torch.py",
+                                os.path.join(work, "quickstart.html")]))
+    for name, argv in runs:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, *argv, "--device", str(dev)],
+                              cwd=ROOT, capture_output=True, text=True,
+                              timeout=DRIVER_TIMEOUT)
+        require(proc.returncode == 0, f"{name} exits 0: "
+                + proc.stderr[-2000:])
+        rec = json_lines(proc.stdout)[-1]
+        launches = launches_of(proc.stderr)
+        require(rec["finite"] is True, f"{name}: finite coordinates")
+        require(sum(launches.values()) > 0, f"{name} launched kernels")
+        if name == "staged config 3":
+            require(launches.get("fused_step", 0) > 0,
+                    "config 3 runs the tiled step (kernel D)")
+        emit(phase="drivers", run=name, record=rec, launches=launches,
+             seconds=time.perf_counter() - t0)
+
+
 def main() -> int:
     import torch
 
@@ -2597,6 +2840,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     smi = phase_env(torch)
     phase_build()
+    lj_prep = start_lj_prep()
 
     t0 = time.perf_counter()
     g = synth.mesh3d(MESH_SIDE)
@@ -2642,6 +2886,10 @@ def main() -> int:
     phase_device_partition(torch, g, res, native_s, flat, dev, main_coords)
     phase_run_tests(dev)
     phase_embedder(g, dev)
+    for name, errs in phase_lj_scale(torch, dev, smi, lj_prep).items():
+        for key, v in zip(("max_abs_err", "max_err_over_scale"), errs):
+            kernels[name][key] = max(kernels[name][key], v)
+    phase_drivers(dev)
     mesh_path = flat_launches[f"mesh3d({MESH_SIDE})"]
     rmat_path = flat_launches["rmat(20,8)"]
     linlog_path = flat_launches["rmat(20,8) linlog"]
