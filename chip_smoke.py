@@ -171,14 +171,44 @@ Phases, one JSON line each:
             the 200k-vertex power-law graph, the sharded step on the 1M-vertex
             one over this card) and ``examples/quickstart_torch.py``, each in
             a subprocess: its record with ``finite`` true, and its launches
-            (kernel D in config 3).
+            (kernel D in config 3);
+  drivers at scale  the rest of the repo's run drivers, each in a
+            subprocess on the LJ-scale prep's cache, their records held
+            to the JAX records' host facts: the halo pipeline, host-bound,
+            started as soon as that cache is there, so that it runs beside
+            the lj scale and drivers phases
+            (``scripts/halo_pipeline_run_torch.py 2 1000 22 8 both``: the
+            finest two levels, [2009212, 72647] with entries [65244308,
+            46723835], the base case on ``make_mesh(1)`` by the halo step
+            and by the replicated step, which must take the sampled
+            estimator, its peak memory below the dense gram block's 21.1
+            GB; kernel A in the base spans, A and B in the refine spans,
+            level 0 finite inside its parent balls, stress within 10% of
+            the JAX record's 0.170; per-span seconds, the card's busy
+            seconds inside each (torch.profiler) and launches, buckets,
+            peak memory), beside it in turn the two-process record
+            (rmat(17, 8): 1 x 8 and 2 x 4 shards under gloo, equal
+            checksums, n, edges, levels and comm model of
+            dist_halo_record.jsonl), the quality roster's planted 100k
+            entry with its embed and planted precision at caps 0 and 1200
+            (aggregates, modularities within 1e-4, level sizes and
+            similarity counts of bench_quality.jsonl and
+            bench_planted_precision.jsonl), and the kernel holds at these
+            drivers' shapes: kernel A on the halo base case's weighted CSR,
+            and on the probes' plan of the ordered unit-weight rmat(22, 8)
+            kernel A unit on its residual edges and kernel D on the whole
+            step; then, alone, the halo scale run (the
+            8-shard plan's boundary fraction within 5e-4 of 0.696, the
+            one-shard halo step and the flat step in ms per iteration) and
+            the LJ step probe (n and entries of the ordered rmat(22, 8),
+            ms per iteration).
 Each path (main, entry, flat per graph, linlog, lj per plan, bf16 embed,
 portable embed, linlog embed, halo per graph, the sharded embed, the
 replicated pipeline and each replicated flat run, each rank's three
 paths, the device hierarchy, the device chain, the card-only embed) is
 driven with the launch counts set to 0 just before it and read just
-after; the subprocesses (the CLI, the LJ-scale driver, the staged configs
-and the quickstart) report their own.
+after; the subprocesses (the CLI, the LJ-scale driver, the staged configs,
+the quickstart and the drivers at scale) report their own.
 Then the nvidia-smi line, the kernel summary as one JSON object (per
 kernel: launches on its path, error, ms on the card alone, host_ms to
 enqueue it, and plain ms as measured, the
@@ -192,6 +222,7 @@ no CPU run: without a CUDA device the script exits 1 at once.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import statistics
@@ -247,6 +278,40 @@ LJ_SCALE_STRESS_GAP = 0.10
 LJ_SCALE_TIMEOUT = 600
 # the staged configs and the quickstart: the seconds each may take
 DRIVER_TIMEOUT = 300
+# the drivers at scale phase, on the LJ-scale cache: the halo pipeline
+# (the finest two levels, 1,000 base iterations, both arms) and its JAX
+# record's levels, entries and stress (BENCHMARKS.md:617-623), the 8-shard
+# plan's boundary fraction at rmat(22, 8) (BENCHMARKS.md:573), the
+# two-process record's scale, and the quality tools' arguments; the JAX
+# records they are held to; the seconds each driver may take
+PIPE_ARGS = ("2", "1000", *LJ_SCALE, "both")
+PIPE_LEVELS = LJ_SCALE_LEVELS[:2]
+PIPE_ENTRIES = LJ_SCALE_ENTRIES[:2]
+PIPE_STRESS = 0.170
+PLAN8_BOUNDARY_FRACTION = 0.696
+PLAN8_GAP = 5e-4
+DIST_SCALE = "17"
+DIST_RECORD = os.path.join(ROOT, "dist_halo_record.jsonl")
+ROSTER_ARGS = ("--only", "synth:planted:200", "--embed", "--louvain-max-n",
+               "0")
+ROSTER_RECORD = os.path.join(ROOT, "bench_quality.jsonl")
+PLANTED_CAPS = "0,1200"
+PLANTED_RECORD = os.path.join(ROOT, "bench_planted_precision.jsonl")
+AT_SCALE_DIR = os.path.join(ROOT, "graph_embed_tpu_torch", "_build", "smoke",
+                            "drivers_at_scale")
+AT_SCALE_TIMEOUT = 600
+# the halo pipeline's replicated base case would hold a dense float32
+# [n, n] gram block on one shard; its peak memory must stay below it
+PIPE_DENSE_BYTES = 4 * PIPE_LEVELS[1] ** 2
+# the profiler's card clock against the host's: the card's busy seconds
+# inside a span may pass the span's host seconds by this share
+BUSY_SLACK = 0.01
+# the probes' default sender block and window (scripts/lj_step_probe.py)
+PROBE_SHAPE = 8192
+# the subprocesses' standard output and error, one pair of files per run
+SCRIPT_LOGS = os.path.join(ROOT, "graph_embed_tpu_torch", "_build", "smoke",
+                           "logs")
+_SCRIPT_RUNS = itertools.count()
 # the profile phase's trace directory
 TRACE_DIR = os.path.join(ROOT, "chiprun_out", "chip_smoke_trace")
 # the card's peaks for the bounds (NVIDIA's data sheet, H100 SXM at
@@ -884,6 +949,47 @@ def hold(kernel: str, got, want, scale, **fields) -> tuple[float, float]:
     return err, ratio
 
 
+def hold_flat_plan(torch, g, tfa, params, gen, dev, **fields) -> dict:
+    """Kernel A on a tiled plan's residual edges (where it has any, hub
+    rows included) and kernel D on the whole step, each against its plain
+    version on inputs drawn from ``gen``: {"inputs": (x, f_prev, sample
+    ids, A's output or None), kernel: (max_abs_err, max_err_over_scale)}."""
+    from graph_embed_tpu_torch.ops import edge_spmm as ES
+    from graph_embed_tpu_torch.ops import fused_step as FS
+    from graph_embed_tpu_torch.ops import repulsion as RP
+
+    x = torch.rand((g.n, 3), generator=gen, device=dev) * 2 - 1
+    fprev = torch.rand((g.n, 3), generator=gen, device=dev) * 2 - 1
+    idx = RP.draw_samples(g.n, params.num_negative_samples, gen, dev)
+    out = {}
+    y_res = None
+    if tfa.csr is not None:
+        y_res = ES.spmv_cuda(x, tfa.csr)
+        want = ES.spmv_plain(x, tfa.csr)
+        scale = ES.spmv_plain(x.abs(), tfa.csr)   # unit weights
+        torch.cuda.synchronize()
+        out["edge_spmm[unit]"] = hold(
+            "edge_spmm[unit]", y_res, want, scale, rows=tfa.csr.n_rows,
+            nnz=tfa.csr.nnz, hub_rows=int(tfa.csr.hub_rows.numel()),
+            **fields)
+        del want, scale
+    rest = (tfa.deg_w_att, tfa.deg_p1, idx, params)
+    got_x, got_f = FS.fa_step_fused_cuda(x, fprev, tfa.dia_w, tfa.dia_off,
+                                         y_res, *rest)
+    plain = (x, tfa.dia_w, tfa.dia_offsets, y_res, *rest)
+    want_f = FS.step_forces_plain(*plain)
+    scale_f = FS.step_forces_plain(*plain, absolute=True)
+    want_x = FS.speed_update(x, got_f, fprev, params)
+    torch.cuda.synchronize()
+    err, ratio = hold("fused_step", got_f, want_f, scale_f, output="f",
+                      dia_offsets=len(tfa.dia_offsets), **fields)
+    _, ratio_x = hold("fused_step", got_x, want_x,
+                      x.abs() + (want_x - x).abs(), output="x'", **fields)
+    out["fused_step"] = (err, max(ratio, ratio_x))
+    out["inputs"] = (x, fprev, idx, y_res)
+    return out
+
+
 def phase_flat_kernels(torch, flat: dict, lj: dict, dev) -> dict:
     """Kernels D, E and C against their plain versions at the flat step's
     full-width shapes (kernel D also on the community graph's f32 plan)."""
@@ -899,19 +1005,10 @@ def phase_flat_kernels(torch, flat: dict, lj: dict, dev) -> dict:
     plans.append(("community_rmat", *lj["community f32"][:2]))
     for name, g, tfa in plans:
         params = flat_params()
-        x = torch.rand((g.n, 3), generator=gen, device=dev) * 2 - 1
-        fprev = torch.rand((g.n, 3), generator=gen, device=dev) * 2 - 1
-        idx = RP.draw_samples(g.n, FLAT_SAMPLES, gen, dev)
-        y_res = None
+        held = hold_flat_plan(torch, g, tfa, params, gen, dev, graph=name)
+        x, fprev, idx, y_res = held["inputs"]
         if tfa.csr is not None:
-            # kernel A on the residual edges, hub rows included
-            y_res = ES.spmv_cuda(x, tfa.csr)
-            want = ES.spmv_plain(x, tfa.csr)
-            scale = ES.spmv_plain(x.abs(), tfa.csr)   # unit weights
-            torch.cuda.synchronize()
-            err, ratio = hold("edge_spmm[unit]", y_res, want, scale,
-                              graph=name, rows=tfa.csr.n_rows,
-                              nnz=tfa.csr.nnz)
+            err, ratio = held["edge_spmm[unit]"]
             ms, host_ms = device_ms(lambda: ES.spmv_cuda(x, tfa.csr))
             emit(phase="kernels", kernel="edge_spmm[unit]", graph=name,
                  ms=ms, host_ms=host_ms,
@@ -926,19 +1023,7 @@ def phase_flat_kernels(torch, flat: dict, lj: dict, dev) -> dict:
                 max_err_over_scale=max(ratio, prev["max_err_over_scale"]))
         dia = (tfa.dia_w, tfa.dia_offsets, tfa.dia_off)
         rest = (tfa.deg_w_att, tfa.deg_p1, idx, params)
-        got_x, got_f = FS.fa_step_fused_cuda(x, fprev, dia[0], dia[2], y_res,
-                                             *rest)
-        plain = (x, dia[0], dia[1], y_res, *rest)
-        want_f = FS.step_forces_plain(*plain)
-        scale_f = FS.step_forces_plain(*plain, absolute=True)
-        want_x = FS.speed_update(x, got_f, fprev, params)
-        torch.cuda.synchronize()
-        err, ratio = hold("fused_step", got_f, want_f, scale_f, graph=name,
-                          output="f")
-        _, ratio_x = hold("fused_step", got_x, want_x,
-                          x.abs() + (want_x - x).abs(), graph=name,
-                          output="x'")
-        d_err.append((err, max(ratio, ratio_x)))
+        d_err.append(held["fused_step"])
         ms, host_ms = device_ms(lambda: FS.fa_step_fused_cuda(
             x, fprev, dia[0], dia[2], y_res, *rest))
         plain_ms = cuda_ms(lambda: FS.fa_step_fused_plain(
@@ -2618,60 +2703,180 @@ def phase_embedder(g, dev) -> None:
          launches=launches, **times)
 
 
-def start_lj_prep():
+def stop_group(proc) -> None:
+    """Kill ``proc``'s process group (a driver and its workers)."""
+    import signal
+
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def start_script(argv: list, timeout: int, name: str | None = None) -> dict:
+    """Start ``python argv`` from the checkout in its own process group,
+    stopped at exit if it is still running.  Its standard output and error
+    go to files under SCRIPT_LOGS (a pipe nobody reads while it runs could
+    stall it).  ``timeout`` counts from now; ``name`` (the script's file
+    name by default) labels its checks."""
+    import atexit
+
+    name = name or os.path.basename(argv[0])
+    os.makedirs(SCRIPT_LOGS, exist_ok=True)
+    stem = os.path.join(SCRIPT_LOGS, f"{next(_SCRIPT_RUNS):02d}_"
+                        + name.replace("/", "_"))
+    with open(stem + ".out", "w") as out, open(stem + ".err", "w") as err:
+        proc = subprocess.Popen([sys.executable, *argv], cwd=ROOT,
+                                stdout=out, stderr=err,
+                                start_new_session=True)
+    atexit.register(stop_group, proc)
+    return dict(name=name, proc=proc, stem=stem, timeout=timeout,
+                t0=time.perf_counter())
+
+
+def wait_script(run: dict) -> dict:
+    """Wait for a ``start_script`` run until its timeout (then kill it);
+    the run with ``rc`` (None past the timeout), ``out``, ``err`` and
+    ``seconds``."""
+    left = run["t0"] + run["timeout"] - time.perf_counter()
+    try:
+        rc = run["proc"].wait(timeout=max(left, 0.0))
+    except subprocess.TimeoutExpired:
+        stop_group(run["proc"])
+        rc = None
+    texts = {}
+    for ext in ("out", "err"):
+        with open(f"{run['stem']}.{ext}") as f:
+            texts[ext] = f.read()
+    return dict(run, rc=rc, seconds=time.perf_counter() - run["t0"],
+                **texts)
+
+
+def script_ok(done: dict) -> tuple:
+    """Require that a finished run exited 0 in time; (stdout, stderr,
+    seconds)."""
+    name = done["name"]
+    require(done["rc"] is not None,
+            f"{name} finishes within {done['timeout']} s")
+    require(done["rc"] == 0, f"{name} exits 0: {done['err'][-3000:]}")
+    return done["out"], done["err"], done["seconds"]
+
+
+def run_script(argv: list, timeout: int = AT_SCALE_TIMEOUT,
+               name: str | None = None) -> tuple:
+    return script_ok(wait_script(start_script(argv, timeout, name)))
+
+
+def run_in_turn(runs: list):
+    """Run the scripts ``runs`` ([argv]) one after another in a thread,
+    stopping at the first that fails; (thread, {name: finished run})."""
+    import threading
+
+    results = {}
+
+    def body():
+        for argv in runs:
+            done = wait_script(start_script(argv, AT_SCALE_TIMEOUT))
+            results[done["name"]] = done
+            if done["rc"] != 0:
+                return
+
+    thread = threading.Thread(target=body, daemon=True)
+    thread.start()
+    return thread, results
+
+
+def start_lj_prep() -> dict:
     """Start the LJ-scale pipeline's prep stage (generation and native
     partition: host work only) in the background from an empty cache, so
     it overlaps the phases before ``phase_lj_scale``; stopped at exit."""
-    import atexit
     import shutil
 
     shutil.rmtree(LJ_SCALE_CACHE, ignore_errors=True)
-    work = os.path.join(ROOT, "graph_embed_tpu_torch", "_build", "smoke")
-    os.makedirs(work, exist_ok=True)
-    log = open(os.path.join(work, "lj_prep.log"), "w")
-    proc = subprocess.Popen(
-        [sys.executable, "scripts/lj_scale_run_torch.py", "prep",
-         *LJ_SCALE], cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
-    atexit.register(lambda: proc.poll() is None and proc.kill())
-    return proc, log
+    return start_script(["scripts/lj_scale_run_torch.py", "prep",
+                         *LJ_SCALE], LJ_SCALE_TIMEOUT, name="lj scale prep")
 
 
 def json_lines(text: str) -> list:
     return [json.loads(ln) for ln in text.splitlines() if ln.startswith("{")]
 
 
-def phase_lj_scale(torch, dev, smi: str, prep) -> dict:
-    """The power-law pipeline at LiveJournal scale through its driver:
-    ``scripts/lj_scale_run_torch.py all 22 8`` in a subprocess, once the
-    background prep has cached the graph and its hierarchy.  The hierarchy
-    must be the JAX record's (levels, entries, Q), level 0's refinement
-    must hold sampled buckets, kernels A and B must launch in the refine
-    spans, every level must lie finite inside its parent balls, and the
-    layout stress must lie within LJ_SCALE_STRESS_GAP of the JAX record's.
-    Then kernels A and B are held against their plain versions at the
-    pipeline's shapes (``lj_scale_holds``, whose worst errors it
-    returns)."""
-    proc, log = prep
-    t0 = time.perf_counter()
-    rc = proc.wait(timeout=LJ_SCALE_TIMEOUT)
-    log.close()
-    prep_wait = time.perf_counter() - t0
-    with open(log.name) as f:
-        prep_log = f.read()
-    require(rc == 0, "lj_scale_run_torch.py prep exits 0: "
-            + prep_log[-2000:])
-    t0 = time.perf_counter()
-    run = subprocess.run(
-        [sys.executable, "scripts/lj_scale_run_torch.py", "all", *LJ_SCALE],
-        cwd=ROOT, capture_output=True, text=True, timeout=LJ_SCALE_TIMEOUT)
-    wall = time.perf_counter() - t0
-    require(run.returncode == 0, "lj_scale_run_torch.py all exits 0: "
-            + run.stderr[-3000:])
-    lines = json_lines(run.stdout)
-    rec = lines[-1]
+def check_embed_lines(lines: list, label: str, refined: list,
+                      stress_want: float) -> dict:
+    """The checks an embed driver's lines (scripts/lj_scale_run_torch.py,
+    one arm of scripts/halo_pipeline_run_torch.py) must pass: kernels A and
+    B launched in the refine spans, every level in ``refined`` finite
+    inside its parent balls within their slack, and the layout stress
+    within LJ_SCALE_STRESS_GAP of the JAX record's ``stress_want``.
+    Returns the lines by phase, the launches summed per span name, the
+    balls and the stress."""
     by = {}
-    for ln in lines[:-1]:
-        by.setdefault(ln["phase"], []).append(ln)
+    for ln in lines:
+        if "phase" in ln:
+            by.setdefault(ln["phase"], []).append(ln)
+    launched = {}
+    for sp in by["span"]:
+        per = launched.setdefault(sp["span"], {})
+        for k, v in sp["launches"].items():
+            per[k] = per.get(k, 0) + v
+    refine = launched.get("refine", {})
+    require(sum(v for k, v in refine.items() if k.startswith("edge_spmm["))
+            > 0 and refine.get("bucket_repulsion", 0) > 0,
+            f"{label}: kernels A and B launched in the refine spans "
+            f"({refine})")
+    balls = by["balls"][0]["levels"]
+    require(sorted(balls) == sorted(str(l) for l in refined),
+            f"{label}: levels {refined} checked against their parent balls")
+    for level, b in balls.items():
+        require(b["finite"] and b["excess"] <= b["slack"],
+                f"{label}: level {level} finite inside its parent balls "
+                f"({b})")
+    stress = by["stress"][0]["stress"]
+    require(abs(stress - stress_want) <= LJ_SCALE_STRESS_GAP * stress_want,
+            f"{label}: layout stress {stress} within "
+            f"{LJ_SCALE_STRESS_GAP:.0%} of the JAX record's {stress_want}")
+    return dict(by=by, launched=launched, balls=balls, stress=stress)
+
+
+def at_scale_out(name: str) -> str:
+    """A fresh path under AT_SCALE_DIR for a driver's ``--out``."""
+    os.makedirs(AT_SCALE_DIR, exist_ok=True)
+    path = os.path.join(AT_SCALE_DIR, name)
+    if os.path.exists(path):
+        os.remove(path)
+    return path
+
+
+def start_pipeline(prep: dict, dev) -> tuple:
+    """Once the background prep has cached the LJ-scale graph and its
+    hierarchy (required to have exited 0), start the halo pipeline on that
+    cache: it is host-bound (its top-level radii sweeps and its plans), so
+    it runs beside the lj scale, drivers and drivers at scale phases, and
+    ``phase_drivers_at_scale`` checks it.  (the run, seconds waited for the
+    prep)."""
+    t0 = time.perf_counter()
+    script_ok(wait_script(prep))
+    prep_wait = time.perf_counter() - t0
+    pipe = start_script(["scripts/halo_pipeline_run_torch.py", *PIPE_ARGS,
+                         "--device", str(dev), "--out",
+                         at_scale_out("halo_pipeline.jsonl")],
+                        AT_SCALE_TIMEOUT)
+    return pipe, prep_wait
+
+
+def phase_lj_scale(torch, dev, smi: str, prep_wait: float) -> dict:
+    """The power-law pipeline at LiveJournal scale through its driver:
+    ``scripts/lj_scale_run_torch.py all 22 8`` in a subprocess, on the
+    background prep's cache (``prep_wait``: the seconds the script waited
+    for it).  The hierarchy
+    must be the JAX record's (levels, entries, Q), level 0's refinement
+    must hold sampled buckets, and the embed must pass
+    ``check_embed_lines`` on every refined level.  Then kernels A and B
+    are held against their plain versions at the pipeline's shapes
+    (``lj_scale_holds``, whose worst errors it returns)."""
+    out, _, wall = run_script(["scripts/lj_scale_run_torch.py", "all",
+                               *LJ_SCALE], LJ_SCALE_TIMEOUT)
+    lines = json_lines(out)
+    rec = lines[-1]
     require(rec["n"] == LJ_SCALE_LEVELS[0]
             and rec["level_sizes"] == LJ_SCALE_LEVELS,
             f"rmat(22, 8) levels {rec['level_sizes']}")
@@ -2679,31 +2884,14 @@ def phase_lj_scale(torch, dev, smi: str, prep) -> dict:
             f"rmat(22, 8) level entries {rec['level_edges']}")
     require(abs(rec["modularity"] - LJ_SCALE_Q) <= 1e-4,
             f"rmat(22, 8) Q {rec['modularity']}")
+    checked = check_embed_lines(lines, "lj scale",
+                                list(range(len(LJ_SCALE_LEVELS) - 1)),
+                                LJ_SCALE_STRESS)
+    by = checked["by"]
     buckets = {b["level"]: b for b in by["buckets"]}
     require(len(buckets[0]["sampled"]) > 0,
             "level 0's refinement holds sampled buckets")
-    on_refine = {}
-    for sp in by["span"]:
-        if sp["span"] == "refine":
-            for k, v in sp["launches"].items():
-                on_refine[k] = on_refine.get(k, 0) + v
-    require(sum(v for k, v in on_refine.items()
-                if k.startswith("edge_spmm[")) > 0
-            and on_refine.get("bucket_repulsion", 0) > 0,
-            f"kernels A and B launched in the refine spans ({on_refine})")
-    balls = by["balls"][0]["levels"]
-    require(sorted(balls) == [str(l) for l in range(len(LJ_SCALE_LEVELS)
-                                                    - 1)],
-            "every refined level checked against its parent balls")
-    for level, b in balls.items():
-        require(b["finite"] and b["excess"] <= b["slack"],
-                f"level {level} finite inside its parent balls ({b})")
     require(rec["coords_finite"] is True, "finite coordinates")
-    stress = by["stress"][0]["stress"]
-    require(abs(stress - LJ_SCALE_STRESS) <= LJ_SCALE_STRESS_GAP
-            * LJ_SCALE_STRESS, f"layout stress {stress} within "
-            f"{LJ_SCALE_STRESS_GAP:.0%} of the JAX record's "
-            f"{LJ_SCALE_STRESS}")
     memory = by["memory"][0]
     emit(phase="lj scale", nvidia_smi=smi, workload=rec["workload"],
          n=rec["n"], level_sizes=rec["level_sizes"],
@@ -2716,10 +2904,11 @@ def phase_lj_scale(torch, dev, smi: str, prep) -> dict:
          stress_seconds=rec["stress_seconds"], run_seconds=wall,
          spans=[{k: v for k, v in sp.items() if k != "phase"}
                 for sp in by["span"]],
-         buckets=by["buckets"], ball_excess=balls,
+         buckets=by["buckets"], ball_excess=checked["balls"],
          max_memory_allocated=memory["max_memory_allocated"],
-         launches=memory["launches"], refine_launches=on_refine,
-         layout_stress=stress, jax_record_stress=LJ_SCALE_STRESS)
+         launches=memory["launches"],
+         refine_launches=checked["launched"].get("refine", {}),
+         layout_stress=checked["stress"], jax_record_stress=LJ_SCALE_STRESS)
     return lj_scale_holds(torch, dev)
 
 
@@ -2731,19 +2920,14 @@ def lj_scale_holds(torch, dev) -> dict:
     size class of levels 0 and 1.  Returns each kernel's worst
     (max_abs_err, max_err_over_scale) for the summary line."""
     import dataclasses
-    import importlib.util
 
     from graph_embed_tpu_torch.forceatlas import multilevel_tiled as MT
     from graph_embed_tpu_torch.ops import edge_spmm as ES
     from graph_embed_tpu_torch.utils.params import MultilevelFAParams
 
-    spec = importlib.util.spec_from_file_location(
-        "lj_scale_run_torch", os.path.join(ROOT, "scripts",
-                                           "lj_scale_run_torch.py"))
-    driver = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(driver)
     t0 = time.perf_counter()
-    graphs, parts, _ = driver.load_cache(*map(int, LJ_SCALE))
+    graphs, parts, _ = load_script("lj_scale_run_torch").load_cache(
+        *map(int, LJ_SCALE))
     params = MultilevelFAParams()
     gen = torch.Generator(device=dev).manual_seed(11)
     worst = {}
@@ -2807,21 +2991,255 @@ def phase_drivers(dev) -> None:
     runs.append(("quickstart", ["examples/quickstart_torch.py",
                                 os.path.join(work, "quickstart.html")]))
     for name, argv in runs:
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, *argv, "--device", str(dev)],
-                              cwd=ROOT, capture_output=True, text=True,
-                              timeout=DRIVER_TIMEOUT)
-        require(proc.returncode == 0, f"{name} exits 0: "
-                + proc.stderr[-2000:])
-        rec = json_lines(proc.stdout)[-1]
-        launches = launches_of(proc.stderr)
+        out, err, wall = run_script([*argv, "--device", str(dev)],
+                                    DRIVER_TIMEOUT, name=name)
+        rec = json_lines(out)[-1]
+        launches = launches_of(err)
         require(rec["finite"] is True, f"{name}: finite coordinates")
         require(sum(launches.values()) > 0, f"{name} launched kernels")
         if name == "staged config 3":
             require(launches.get("fused_step", 0) > 0,
                     "config 3 runs the tiled step (kernel D)")
         emit(phase="drivers", run=name, record=rec, launches=launches,
-             seconds=time.perf_counter() - t0)
+             seconds=wall)
+
+
+def first_records(path: str, k: int) -> list:
+    with open(path) as f:
+        return [json.loads(ln) for ln in f.read().splitlines()[:k]]
+
+
+def phase_drivers_at_scale(torch, dev, smi: str, pipe: dict) -> dict:
+    """The halo pipeline (``pipe``, started by ``start_pipeline``), the
+    halo and LJ step probes, the two-process record and the quality tools
+    through their drivers, each in a subprocess, on the LJ-scale cache;
+    each record held to the JAX record of the same host facts.  While the
+    pipeline runs, the two-process record and the quality tools run in
+    turn beside it, and the kernel holds at its and the probes' shapes
+    (``pipeline_holds``, whose worst errors it returns) here; the two step
+    probes, whose times are CUDA events of a few milliseconds, run after
+    them, alone."""
+    import numpy as np
+
+    dev_args = ("--device", str(dev))
+    beside, results = run_in_turn([
+        ["scripts/dist_halo_record_torch.py", DIST_SCALE, *dev_args,
+         "--out", at_scale_out("dist_halo_record.jsonl")],
+        ["scripts/quality_roster_torch.py", *ROSTER_ARGS, *dev_args, "-o",
+         at_scale_out("bench_quality.jsonl")],
+        ["scripts/planted_precision_torch.py", "--caps", PLANTED_CAPS,
+         *dev_args, "-o", at_scale_out("bench_planted_precision.jsonl")]])
+    worst = pipeline_holds(torch, dev)
+
+    # the halo pipeline: both arms at full size
+    out, err, wall = script_ok(wait_script(pipe))
+    lines = json_lines(out)
+    rec = lines[-1]
+    require(rec["level_sizes"] == PIPE_LEVELS
+            and rec["level_edges"] == PIPE_ENTRIES,
+            f"the pipeline keeps levels {rec['level_sizes']} with entries "
+            f"{rec['level_edges']}")
+    arms = {}
+    for arm in ("halo", "replicated"):
+        a = rec[arm]
+        checked = check_embed_lines(
+            [ln for ln in lines if ln.get("arm") == arm], f"{arm} arm",
+            [0], PIPE_STRESS)
+        by = checked["by"]
+        require(checked["launched"].get("base", {}).get(
+            "edge_spmm[weighted]", 0) > 0,
+            f"{arm} arm: kernel A weighted in the base span")
+        for sp in by["span"]:
+            require(0 <= sp["device_seconds"]
+                    <= sp["seconds"] * (1 + BUSY_SLACK),
+                    f"{arm} arm: the card busy inside the {sp['span']} "
+                    f"span no longer than the span ({sp})")
+        require(a["coords_finite"] is True, f"{arm} arm: finite coordinates")
+        require(a["base_repulsion"] == "sampled",
+                f"{arm} arm: the base case on the sampled estimator")
+        peak = by["memory"][0]["max_memory_allocated"]
+        require(peak < PIPE_DENSE_BYTES,
+                f"{arm} arm: peak memory {peak} below the dense gram "
+                f"block's {PIPE_DENSE_BYTES} bytes")
+        arms[arm] = dict(
+            embed_seconds=a["embed_seconds"], stress=checked["stress"],
+            stress_seconds=a["stress_seconds"],
+            base_repulsion=a["base_repulsion"],
+            spans=[{k: v for k, v in sp.items() if k not in ("phase", "arm")}
+                   for sp in by["span"]],
+            buckets=[{k: v for k, v in b.items() if k not in ("phase", "arm")}
+                     for b in by["buckets"]],
+            ball_excess=checked["balls"], max_memory_allocated=peak)
+    emit(phase="drivers at scale", run="halo pipeline", nvidia_smi=smi,
+         args=list(PIPE_ARGS), level_sizes=rec["level_sizes"],
+         level_entries=rec["level_edges"],
+         halo_vs_replicated_embed=rec["halo_vs_replicated_embed"],
+         jax_record_stress=PIPE_STRESS, dense_gram_bytes=PIPE_DENSE_BYTES,
+         seconds=wall, **arms)
+
+    # two processes of 4 shards against one of 8
+    beside.join(timeout=3 * AT_SCALE_TIMEOUT)
+    for name in ("dist_halo_record_torch.py", "quality_roster_torch.py",
+                 "planted_precision_torch.py"):
+        require(name in results, f"{name} ran")
+    out, _, wall = script_ok(results["dist_halo_record_torch.py"])
+    lines = json_lines(out)
+    recs = [ln for ln in lines if "workload" in ln]
+    want = first_records(DIST_RECORD, 1)[0]
+    require([(r["nprocs"], r["ndev_local"]) for r in recs] == [(1, 8),
+                                                               (2, 4)],
+            "both arms of the two-process record ran")
+    for r in recs:
+        require((r["n"], r["edges"], r["levels"]) == (
+            want["n"], want["edges"], want["levels"]),
+            f"rmat({DIST_SCALE}, 8): n, edges and levels of the JAX record")
+        require(r["comm_model"] == want["comm_model"],
+                f"the comm model {r['comm_model']} is the JAX record's")
+        require(r["launches"].get("edge_spmm[weighted]", 0) > 0
+                and r["launches"].get("bucket_repulsion", 0) > 0,
+                f"the {r['nprocs']}-process embed runs kernels A and B")
+    require(lines[-1]["checksums_equal"] is True
+            and recs[0]["coords_checksum"] == recs[1]["coords_checksum"],
+            "2 x 4 shards give the coordinates of 1 x 8")
+    emit(phase="drivers at scale", run="two-process record", nvidia_smi=smi,
+         records=recs, seconds=wall)
+
+    # the quality roster's planted 100k entry, with its embed
+    out, err, wall = script_ok(results["quality_roster_torch.py"])
+    rec = json_lines(out)[-1]
+    want = first_records(ROSTER_RECORD, 1)[0]
+    require(rec["graph"] == want["graph"] and "error" not in rec,
+            f"the roster ran {want['graph']}")
+    for key in ("n", "edges", "aggregates", "level_sizes",
+                "ground_truth_similarity"):
+        require(rec[key] == want[key], f"roster {key}: {rec[key]} against "
+                f"the JAX record's {want[key]}")
+    for key in ("modularity", "variant_modularity"):
+        require(abs(rec[key] - want[key]) <= 1e-4, f"roster {key}")
+    require(np.allclose(rec["level_modularity"], want["level_modularity"],
+                        rtol=0, atol=1e-4), "roster level modularity")
+    require(0 < rec["stress"] < float("inf"), "the roster's embed is finite")
+    launches = launches_of(err)
+    require(launches.get("bucket_repulsion", 0) > 0,
+            "the roster's embed runs kernel B")
+    emit(phase="drivers at scale", run="quality roster", nvidia_smi=smi,
+         record=rec, launches=launches, seconds=wall)
+
+    # the planted 1M graph, uncapped and capped at 1,200
+    out, err, wall = script_ok(results["planted_precision_torch.py"])
+    recs = json_lines(out)
+    wants = first_records(PLANTED_RECORD, 2)
+    require(len(recs) == 2, "one record per cap")
+    for r, w in zip(recs, wants):
+        for key in ("graph", "max_agg_size", "level_sizes", "truth_level",
+                    "similarity"):
+            require(r[key] == w[key], f"planted cap {w['max_agg_size']} "
+                    f"{key}: {r[key]} against the JAX record's {w[key]}")
+        require(abs(r["Q_at_level"] - w["Q_at_level"]) <= 1e-4,
+                f"planted cap {w['max_agg_size']} Q")
+    launches = launches_of(err)
+    require(sum(v for k, v in launches.items()
+                if k.startswith("edge_spmm[")) > 0,
+            f"the planted modularities run kernel A ({launches})")
+    emit(phase="drivers at scale", run="planted precision", nvidia_smi=smi,
+         records=recs, launches=launches, seconds=wall)
+
+    # alone: the halo and flat steps at one shard on the ordered rmat(22, 8)
+    out, _, wall = run_script(["scripts/halo_scale_run_torch.py", *LJ_SCALE,
+                               *dev_args, "--out",
+                               at_scale_out("halo_scale.jsonl")])
+    rec = json_lines(out)[-1]
+    require(abs(rec["plan8_boundary_fraction"] - PLAN8_BOUNDARY_FRACTION)
+            <= PLAN8_GAP, f"the 8-shard plan's boundary fraction "
+            f"{rec['plan8_boundary_fraction']}")
+    for key in ("halo_ms_per_iter", "replicated_ms_per_iter"):
+        require(rec[key] > 0 and rec[key] < float("inf"), f"{key} finite")
+    require(rec["halo_launches"].get("edge_spmm[unit]", 0) > 0
+            and rec["replicated_launches"].get("fused_step", 0) > 0,
+            "the halo step runs kernel A, the flat step kernel D")
+    emit(phase="drivers at scale", run="halo scale", nvidia_smi=smi,
+         record=rec, seconds=wall)
+
+    # the full flat step, the JAX probe's default shape
+    out, _, wall = run_script(["scripts/lj_step_probe_torch.py", *LJ_SCALE,
+                               *dev_args, "--out",
+                               at_scale_out("BENCH_LJ_torch.jsonl")])
+    rec = json_lines(out)[-1]
+    require((rec["n"], rec["edges"]) == (LJ_SCALE_LEVELS[0],
+                                         LJ_SCALE_ENTRIES[0]),
+            f"the probe's graph n={rec['n']} edges={rec['edges']}")
+    require(0 < rec["ms_per_iter"] < float("inf"), "the probe's ms finite")
+    require(rec["launches"].get("fused_step", 0) > 0,
+            "the probe's step runs kernel D")
+    emit(phase="drivers at scale", run="lj step probe", nvidia_smi=smi,
+         record=rec, seconds=wall)
+    return worst
+
+
+def load_script(name: str):
+    """``scripts/<name>.py`` as a module (the drivers' own helpers)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "scripts", f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def pipeline_holds(torch, dev) -> dict:
+    """Kernels against their plain versions at the shapes of the drivers
+    at scale: kernel A on the halo base case's CSR (level 1 of the
+    LJ-scale cache in the order of the dropped levels, one shard, its
+    Galerkin weights folded and truncated to bf16: the weighted mode); and
+    on the probes' plan (``prepare_tiled`` on level 0 in hierarchy order
+    with unit weights, as scripts/lj_step_probe_torch.py builds it, at its
+    default shape) kernel A unit on the residual edges and kernel D on the
+    whole step.  Returns each kernel's worst (max_abs_err,
+    max_err_over_scale)."""
+    import dataclasses
+
+    import graph_embed_tpu_torch as gp
+    from graph_embed_tpu_torch.forceatlas import tiled as TL
+    from graph_embed_tpu_torch.ops import edge_spmm as ES
+    from graph_embed_tpu_torch.parallel import halo as PH
+
+    t0 = time.perf_counter()
+    graphs, parts, _ = load_script("lj_scale_run_torch").load_cache(
+        *map(int, LJ_SCALE))
+    order = gp.partition_order(graphs[1], levels=parts[1:])
+    g_ord, _ = gp.apply_order(graphs[1], order)
+    plan = PH.build_halo_plan(g_ord, 1)
+    csr = PH.build_halo_csr(plan, gp.ForceAtlasParams(repulsion="sampled"),
+                            device=dev).csr
+    require(csr.w is not None, "the base case's halo CSR is weighted")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    x = torch.rand((csr.n_cols, 3), generator=gen, device=dev) * 2 - 1
+    got = ES.spmv_cuda(x, csr)
+    want = ES.spmv_plain(x, csr)
+    scale = ES.spmv_plain(x.abs(), dataclasses.replace(csr, w=csr.w.abs()))
+    torch.cuda.synchronize()
+    name = f"edge_spmm[{csr.kind}]"
+    worst = {name: hold(name, got, want, scale, path="drivers at scale",
+                        table="halo base case CSR", rows=csr.n_rows,
+                        nnz=csr.nnz, hub_rows=int(csr.hub_rows.numel()))}
+    del graphs, parts, g_ord, plan, csr, x, got, want, scale
+
+    probe = load_script("lj_step_probe_torch")
+    g, workload = probe.probe_graph(*map(int, LJ_SCALE))
+    g = g.to(dev)
+    params = flat_params()
+    tfa = TL.prepare_tiled(g, 3, params, sender_block=PROBE_SHAPE,
+                           window=PROBE_SHAPE, tile=1024, min_pair_edges=0)
+    require(tfa.csr is not None and len(tfa.dia_offsets) > 0,
+            "the probes' plan has DIA offsets and residual edges")
+    held = hold_flat_plan(torch, g, tfa, params, gen, dev,
+                          path="drivers at scale", graph=workload,
+                          n=g.n, entries=g.num_edges)
+    worst.update((k, v) for k, v in held.items() if k != "inputs")
+    emit(phase="drivers at scale holds", seconds=time.perf_counter() - t0,
+         worst={k: list(v) for k, v in worst.items()})
+    return worst
 
 
 def main() -> int:
@@ -2886,10 +3304,15 @@ def main() -> int:
     phase_device_partition(torch, g, res, native_s, flat, dev, main_coords)
     phase_run_tests(dev)
     phase_embedder(g, dev)
-    for name, errs in phase_lj_scale(torch, dev, smi, lj_prep).items():
+    pipe, prep_wait = start_pipeline(lj_prep, dev)
+    for name, errs in phase_lj_scale(torch, dev, smi, prep_wait).items():
         for key, v in zip(("max_abs_err", "max_err_over_scale"), errs):
             kernels[name][key] = max(kernels[name][key], v)
     phase_drivers(dev)
+    for name, errs in phase_drivers_at_scale(torch, dev, smi,
+                                             pipe).items():
+        for key, v in zip(("max_abs_err", "max_err_over_scale"), errs):
+            kernels[name][key] = max(kernels[name][key], v)
     mesh_path = flat_launches[f"mesh3d({MESH_SIDE})"]
     rmat_path = flat_launches["rmat(20,8)"]
     linlog_path = flat_launches["rmat(20,8) linlog"]

@@ -34,7 +34,7 @@ from ..graph.reorder import apply_order, partition_order
 from ..ops import segment
 from ..ops.spgemm import coarsen_graph, coarsen_graph_device
 from ..parallel.halo import halo_force_atlas
-from ..parallel.sharded import sharded_force_atlas
+from ..parallel.sharded import resolved_repulsion, sharded_force_atlas
 from ..parallel.sharded_ml import (prepare_refine_sharded,
                                    refine_level_sharded)
 from ..partition.hierarchy import partition_hierarchy
@@ -130,9 +130,9 @@ def embed(graphs: list[Graph], parts: list[Partition], dim: int = 3, *,
     ``on_level(l, coords, part, coords_parent, r_parent)`` is called after
     each refined level with its partition and the parent centres and radii
     it was packed into.
-    ``metrics`` receives one record per phase (base, radii, layout: the
-    host's layout prep, refine with its ``route``; "resume" when a store
-    supplies levels).
+    ``metrics`` receives one record per phase (base with the repulsion it
+    ran, radii, layout: the host's layout prep, refine with its ``route``;
+    "resume" when a store supplies levels).
     ``final_block`` replaces level 0's refinement with a building block
     (``via.any_to_multilevel``; the embedViaMultilevel hook,
     src/embed.cpp:332), called as ``final_block(A_0, P_0, coords_A, r_A,
@@ -206,16 +206,25 @@ def embed(graphs: list[Graph], parts: list[Partition], dim: int = 3, *,
             r_Ac, coords_Ac = load("r_A"), load("coords_parent")
         metrics.log(phase="resume", level=resume_from)
     else:
-        with metrics.span("base", device, level=k, n=graphs[k].n):
+        on_mesh = mesh is not None and graphs[k].n >= mesh_min_n
+        params_k = base_params
+        if on_mesh:
+            # the halo step samples always; the replicated step drops to
+            # sampling where its dense block would not fit
+            params_k = dataclasses.replace(base_params, repulsion=(
+                "sampled" if sharding == "halo" else
+                resolved_repulsion(graphs[k], mesh.ndev, base_params)))
+        with metrics.span("base", device, level=k, n=graphs[k].n,
+                          repulsion=params_k.repulsion):
             warm_k = warm[k] if warm is not None else None
-            if mesh is not None and graphs[k].n >= mesh_min_n:
+            if on_mesh:
                 if sharding == "halo":
                     coords_A = _halo_base_case(
-                        graphs[k], dim, mesh, base_params, base_iterations,
+                        graphs[k], dim, mesh, params_k, base_iterations,
                         seeds[k], warm_k, order=base_order)
                 else:
                     coords_A = sharded_force_atlas(
-                        graphs[k], dim, mesh=mesh, params=base_params,
+                        graphs[k], dim, mesh=mesh, params=params_k,
                         iterations=base_iterations, seed=seeds[k],
                         coords0=warm_k, device=mesh.device)
             else:
@@ -282,9 +291,8 @@ def _halo_base_case(g: Graph, dim: int, mesh, params: ForceAtlasParams,
     """The boundary-aware base case (driver.py:293-328): partition-order
     the level so the shard cut is small (or take ``order``), run the halo
     step with invariant sampling (the same layout at any shard count), and
-    undo the order.  Repulsion is forced to 'sampled'."""
-    if params.repulsion != "sampled":
-        params = dataclasses.replace(params, repulsion="sampled")
+    undo the order.  ``params.repulsion`` must be 'sampled' (``embed``
+    sets it)."""
     perm = np.asarray(order) if order is not None else partition_order(g)
     if perm.shape[0] != g.n:
         raise ValueError(f"base_order has {perm.shape[0]} entries for a "

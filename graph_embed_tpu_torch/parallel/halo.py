@@ -220,11 +220,12 @@ class HaloCSR:
 
 
 def build_halo_csr(plan: HaloPlan, params: ForceAtlasParams, *,
-                   local_only: bool = False, device="cpu",
+                   local_only: bool = False, device="cuda",
                    shards: range | None = None) -> HaloCSR:
-    """The tiled attraction plan of ``build_halo_tiles`` as one CSR;
-    ``shards`` (one process's, ``ShardMesh.local_shards``) holds only
-    their rows, over their own x rows and the whole pool.
+    """The tiled attraction plan of ``build_halo_tiles`` as one CSR on
+    ``device`` (the card by default, as ``make_mesh``; it raises without
+    one); ``shards`` (one process's, ``ShardMesh.local_shards``) holds
+    only their rows, over their own x rows and the whole pool.
 
     Per-edge constants fold as in the flat tiled path, per shard, in
     float32.  linlog keeps every folded weight (kernel E).  Otherwise unit
@@ -234,6 +235,7 @@ def build_halo_csr(plan: HaloPlan, params: ForceAtlasParams, *,
     applies to the unit mode alone: the reference pairs every unit tiling
     it builds (``jumbo_group`` is 4 or 8, its windows multiples of 1024)
     and no bf16 one."""
+    device = resolve(device)
     rows, cols, ws = _stacked_edges(plan, plan.senders_loc, plan.recv_idx,
                                     plan.weights, local_only)
     folded = []

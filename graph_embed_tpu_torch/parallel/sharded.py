@@ -504,6 +504,19 @@ def make_sharded_fa_step_tiled(mesh: ShardMesh, tiles: ShardedTiles,
     return _TiledStep(mesh, tiles, dim, params, n_real), tiles.n_pad
 
 
+def resolved_repulsion(g: Graph, ndev: int,
+                       params: ForceAtlasParams) -> str:
+    """The repulsion ``sharded_force_atlas`` runs on ``g`` over ``ndev``
+    shards: ``params.repulsion``, or 'sampled' where the dense block
+    [blk, n_pad] in the graph's dtype passes ``DENSE_D2_MAX_BYTES``."""
+    n_pad_v = round_up(max(g.n, 1), ndev)
+    itemsize = torch.empty(0, dtype=g.dtype).element_size()
+    if (params.repulsion != "sampled"
+            and itemsize * (n_pad_v // ndev) * n_pad_v > DENSE_D2_MAX_BYTES):
+        return "sampled"
+    return params.repulsion
+
+
 def sharded_force_atlas(g: Graph, dim: int = 2, *,
                         mesh: ShardMesh | None = None,
                         params: ForceAtlasParams | None = None,
@@ -535,11 +548,9 @@ def sharded_force_atlas(g: Graph, dim: int = 2, *,
         raise ValueError(f"the mesh lives on {mesh.device}, the step was "
                          f"asked to run on {dev}")
     ndev = mesh.ndev
-    n_pad_v = round_up(max(g.n, 1), ndev)
-    itemsize = torch.empty(0, dtype=g.dtype).element_size()
-    if (params.repulsion != "sampled"
-            and itemsize * (n_pad_v // ndev) * n_pad_v > DENSE_D2_MAX_BYTES):
-        params = dataclasses.replace(params, repulsion="sampled")
+    repulsion = resolved_repulsion(g, ndev, params)
+    if repulsion != params.repulsion:
+        params = dataclasses.replace(params, repulsion=repulsion)
     if tiles is not None:
         if tiled is False:
             raise ValueError("prebuilt tiles take the tiled route")

@@ -71,11 +71,65 @@ def cache_dir(scale, ef):
     return d
 
 
+def card_label(device) -> str:
+    """What a record says of where it ran: "cpu", or the card's name and
+    power limit as ``nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader`` prints them for ``device``'s index (a card
+    may be capped below its maximum power and then runs slower, so a time
+    is kept beside the limit it was taken under)."""
+    import subprocess
+
+    import torch
+
+    if device.type == "cpu":
+        return "cpu"
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    out = subprocess.run(
+        ["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip()
+
+
 def synchronize(device):
     import torch
 
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def middle_seconds(run, iters, device, runs=3):
+    """Seconds per iteration of ``run(iters)``: the middle of ``runs``
+    timings, by CUDA events on a card (no host sync inside a run), by the
+    host clock after a synchronize on the CPU."""
+    import torch
+
+    times = []
+    for _ in range(runs):
+        if device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            run(iters)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) / 1e3 / iters)
+        else:
+            t0 = time.perf_counter()
+            run(iters)
+            times.append((time.perf_counter() - t0) / iters)
+    return sorted(times)[len(times) // 2]
+
+
+def plan_facts(csr, prefix=""):
+    """What a CSR plan holds: its entries, its hub rows (more than
+    ``cuda.SPMV_HUB_ROW`` entries) and whether it carries weights (kernel
+    A weighted, else unit)."""
+    return {f"{prefix}entries": 0 if csr is None else csr.nnz,
+            f"{prefix}hub_rows": (0 if csr is None
+                                  else int(csr.hub_rows.numel())),
+            f"{prefix}weighted": csr is not None and csr.w is not None}
 
 
 def prep(scale, ef, rec):
@@ -165,6 +219,63 @@ def buckets_of(part, params):
             for S, aggs in size_classes(counts)]
 
 
+def emit_buckets(parts, params, **fields):
+    """One ``phase: "buckets"`` line per level to refine: its size
+    classes, sampled and exact, and its slots."""
+    for l, part in enumerate(parts):
+        classes = buckets_of(part, params)
+        emit(phase="buckets", level=l,
+             sampled=[[S, m_b] for S, m_b, smp in classes if smp],
+             exact=[[S, m_b] for S, m_b, smp in classes if not smp],
+             slots=sum(S * m_b for S, m_b, _ in classes), **fields)
+
+
+class BallCheck:
+    """The embed's ``on_level``: how far each refined level's farthest
+    vertex lies outside its parent ball, beside the float32 slack of a
+    centre's magnitude."""
+
+    def __init__(self):
+        self.levels = {}
+
+    def __call__(self, level, coords, part, centres, radii):
+        import torch
+
+        v2a = part.vertex_to_agg
+        dist = torch.linalg.norm(coords - centres[v2a], dim=1)
+        self.levels[level] = dict(
+            excess=float((dist - radii[v2a]).max()),
+            slack=1e-5 * float(centres.abs().max()) + 1e-6,
+            finite=bool(torch.isfinite(coords).all()))
+
+    def emit(self, **fields):
+        emit(phase="balls", levels={str(k): v for k, v
+                                    in sorted(self.levels.items())},
+             **fields)
+
+
+def reset_peak_memory(device):
+    """Start the peak device memory count afresh (CUDA's state
+    initialised first: a device with an explicit index does not do it)."""
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.init()
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def emit_memory(device, **fields):
+    """The peak device memory since the last reset, and the launches."""
+    import torch
+
+    from graph_embed_tpu_torch.ops import cuda
+
+    emit(phase="memory", device=str(device),
+         max_memory_allocated=(torch.cuda.max_memory_allocated(device)
+                               if device.type == "cuda" else None),
+         launches=dict(cuda.LAUNCHES), **fields)
+
+
 def probe_refine0(scale, ef, device):
     """Sub-phase timing of the finest level's refinement."""
     import torch
@@ -202,9 +313,31 @@ def probe_refine0(scale, ef, device):
             f"(chk={chk:.3e})")
 
 
-def span_logger(path):
+def device_busy_seconds(events) -> float:
+    """Seconds in which the card ran something (kernel, copy, memset):
+    the union of the device intervals among a profiler's ``events()``."""
+    from torch.autograd import DeviceType
+
+    busy, end = 0.0, float("-inf")
+    for lo, hi in sorted((e.time_range.start, e.time_range.end)
+                         for e in events
+                         if e.device_type == DeviceType.CUDA):
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    return busy / 1e6
+
+
+def span_logger(path, device_time=False):
     """The embed's MetricsLogger: each record also carries the kernel
-    launches made since the previous one, and goes to a JSONL file."""
+    launches made since the previous one, and goes to a JSONL file.  With
+    ``device_time`` each span runs under ``torch.profiler`` (CUDA activity
+    only) and its record gains ``device_seconds``, the time in which the
+    card was busy inside it (``device_busy_seconds``)."""
+    import contextlib
+
+    import torch
+
     from graph_embed_tpu_torch.ops import cuda
     from graph_embed_tpu_torch.utils.timing import MetricsLogger
 
@@ -224,6 +357,22 @@ def span_logger(path):
             self._fh.flush()
             return super().log(**record)
 
+        @contextlib.contextmanager
+        def span(self, phase, device=None, **fields):
+            if not device_time:
+                with super().span(phase, device, **fields):
+                    yield
+                return
+            activity = torch.profiler.ProfilerActivity.CUDA
+            t0 = time.perf_counter()
+            with torch.profiler.profile(activities=[activity]) as prof:
+                yield
+                synchronize(device)
+                seconds = time.perf_counter() - t0
+            self.log(phase=phase, seconds=seconds,
+                     device_seconds=device_busy_seconds(prof.events()),
+                     **fields)
+
         def close(self):
             self._fh.close()
 
@@ -231,8 +380,6 @@ def span_logger(path):
 
 
 def run_embed(scale, ef, rec, device):
-    import torch
-
     import graph_embed_tpu_torch as gp
     from graph_embed_tpu_torch.embed.checkpoint import CheckpointStore
     from graph_embed_tpu_torch.harness.runtests import layout_stress
@@ -252,46 +399,25 @@ def run_embed(scale, ef, rec, device):
                                                         base_params)
     if xprec != "f32":
         rec["x_precision"] = xprec
-    for l, part in enumerate(parts):
-        classes = buckets_of(part, refine_params)
-        emit(phase="buckets", level=l,
-             sampled=[[S, m_b] for S, m_b, smp in classes if smp],
-             exact=[[S, m_b] for S, m_b, smp in classes if not smp],
-             slots=sum(S * m_b for S, m_b, _ in classes))
-
-    balls = {}
-
-    def check_level(level, coords, part, centres, radii):
-        """How far the level's farthest vertex lies outside its parent
-        ball, beside the float32 slack of a centre's magnitude."""
-        v2a = part.vertex_to_agg
-        dist = torch.linalg.norm(coords - centres[v2a], dim=1)
-        balls[level] = dict(
-            excess=float((dist - radii[v2a]).max()),
-            slack=1e-5 * float(centres.abs().max()) + 1e-6,
-            finite=bool(torch.isfinite(coords).all()))
-
+    emit_buckets(parts, refine_params)
+    balls = BallCheck()
     ck = "ckpt" if xprec == "f32" else f"ckpt_{xprec}"
     d = cache_dir(scale, ef)
     store = CheckpointStore(os.path.join(d, ck))
-    if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(device)
+    reset_peak_memory(device)
     cuda.LAUNCHES.clear()
     metrics = span_logger(os.path.join(d, "metrics.jsonl"))
     t0 = time.perf_counter()
     coords = gp.embed(graphs, parts, 3, device=device, metrics=metrics,
-                      store=store, on_level=check_level,
+                      store=store, on_level=balls,
                       base_params=base_params, refine_params=refine_params)
     coords_np = coords.cpu().numpy()
     rec["embed_seconds"] = round(time.perf_counter() - t0, 1)
     metrics.close()
     for span in metrics.records:
         emit(phase="span", span=span.pop("phase"), **span)
-    emit(phase="balls", levels={str(k): v for k, v in sorted(balls.items())})
-    emit(phase="memory", device=str(device),
-         max_memory_allocated=(torch.cuda.max_memory_allocated(device)
-                               if device.type == "cuda" else None),
-         launches=dict(cuda.LAUNCHES))
+    balls.emit()
+    emit_memory(device)
 
     assert np.isfinite(coords_np).all(), "non-finite coords"
     rec["coords_finite"] = True
@@ -304,21 +430,29 @@ def run_embed(scale, ef, rec, device):
     return coords_np
 
 
+def split_args(argv, **defaults):
+    """(positional arguments, options) of ``argv[1:]``: each ``--name
+    value`` whose name is a key of ``defaults`` anywhere, the rest in
+    order; options not given keep their defaults."""
+    args, opts = [], dict(defaults)
+    it = iter(argv[1:])
+    for a in it:
+        if a.startswith("--") and a[2:] in opts:
+            opts[a[2:]] = next(it)
+        else:
+            args.append(a)
+    return args, opts
+
+
 def parse_args(argv):
     """(stage, scale, ef, device) from ``[stage] [scale] [ef]`` and an
     optional ``--device d`` anywhere."""
-    args, device = [], "cuda"
-    it = iter(argv[1:])
-    for a in it:
-        if a == "--device":
-            device = next(it)
-        else:
-            args.append(a)
+    args, opts = split_args(argv, device="cuda")
     stage = args[0] if args else "all"
     raw = args[1] if len(args) > 1 else "22"
     scale = "mesh" if raw == "mesh" else int(raw)
     ef = int(args[2]) if len(args) > 2 else 8
-    return stage, scale, ef, device
+    return stage, scale, ef, opts["device"]
 
 
 def main(argv):

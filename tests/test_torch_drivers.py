@@ -274,6 +274,38 @@ staged = runpy.run_path(root + "/examples/staged_configs_torch.py",
 staged["main"](["staged", "3", coo, "--device", "cpu"])
 qs = runpy.run_path(root + "/examples/quickstart_torch.py", run_name="qs")
 qs["main"](["qs", tmp + "/q.html", "--device", "cpu"])
+# the seven drivers of the halo pipeline, the probes, the two-process
+# record and the quality tools read the same cache through this module
+sys.path.insert(0, root + "/scripts")
+import lj_scale_run_torch
+lj_scale_run_torch.CACHE_ROOT = tmp + "/lj"
+cpu = ["--device", "cpu"]
+
+
+def run(name, argv, **env):
+    mod = runpy.run_path(root + "/scripts/" + name + ".py", run_name=name)
+    mod["main"].__globals__.update(env)
+    assert mod["main"](argv) in (0, None), name
+
+
+run("halo_pipeline_run_torch", ["hp", "2", "20", "10", "8", "both", *cpu,
+                                "--out", tmp + "/hp.jsonl"])
+run("halo_scale_run_torch", ["hs", "10", "8", *cpu, "--out",
+                             tmp + "/hs.jsonl"])
+run("lj_step_probe_torch", ["ls", "10", "8", "1024", "2048", *cpu, "--out",
+                            tmp + "/ls.jsonl"])
+run("quality_ab_torch", ["qa", "10", "8", "--out", tmp + "/qa.jsonl"])
+run("quality_roster_torch", ["--cpu", "--louvain-max-n", "0", "-o",
+                             tmp + "/qr.jsonl"],
+    ROSTER=["synth:planted:4:30:0.3:0.01"])
+run("planted_precision_torch", ["-o", tmp + "/pp.jsonl", "--caps", "0,40",
+                                "--k", "4", "--m", "30", *cpu])
+import os
+os.environ["DIST_HALO_SCALE"] = "8"
+run("_dist_halo_worker_torch", ["w", "0", "1", "unused", tmp + "/dw.jsonl",
+                                *cpu])
+run("dist_halo_record_torch", ["dh", "8", *cpu, "--out", tmp + "/dh.jsonl"],
+    CACHE_ROOT=tmp + "/dist")
 print(json.dumps(sorted(m for m in set(sys.modules) - before
                         if m in ("jax", "graph_embed_tpu")
                         or m.startswith(("jax.", "graph_embed_tpu.")))))
@@ -281,8 +313,11 @@ print(json.dumps(sorted(m for m in set(sys.modules) - before
 
 
 def test_drivers_import_no_jax(tmp_path, small_coolist):
-    """Each driver runs a small stage on the CPU in a fresh interpreter;
-    none of them imports jax or the JAX package."""
+    """Each driver runs a small stage on the CPU in a fresh interpreter
+    (the seven of the halo pipeline, the probes, the two-process record
+    and the quality tools on the lj cache it leaves, the worker of the
+    two-process record in-process); none of them imports jax or the JAX
+    package."""
     proc = subprocess.run(
         [sys.executable, "-c", IMPORT_CHECK, REPO, str(tmp_path),
          small_coolist], capture_output=True, text=True,

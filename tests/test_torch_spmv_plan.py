@@ -227,7 +227,7 @@ def test_linlog_csrs_carry_the_hub_list():
     params = ForceAtlasParams(repulsion="sampled", linlog=True)
     csrs = [TL.prepare_tiled(g, 3, params).csr]
     plan = PH.build_halo_plan(g, 2)
-    csrs.append(PH.build_halo_csr(plan, params).csr)
+    csrs.append(PH.build_halo_csr(plan, params, device="cpu").csr)
     for csr in csrs:
         assert csr.w is not None and csr.n_rows <= csr.n_cols
         assert csr.hub_rows.tolist() == ES.plan_hub_rows(csr.indptr).tolist()
