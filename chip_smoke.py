@@ -57,6 +57,14 @@ Phases, one JSON line each:
             iterations after warm-up, stored entries per second per
             iteration (bench.py:119), launches of kernel D (and A on rmat);
   linlog    the same step with linlog on the rmat graph (kernels E and C);
+  bench     bench_torch.py's timed loop (``time_plan``) on the flat
+            phase's two plans, which are bench.py's workloads: per
+            workload the host-clock stored entries per second (median of 5
+            calls of 20 iterations, each closed by a host readback), the
+            CUDA-event ms per iteration of the same calls, the card-alone
+            and host-enqueue ms of one call (``device_ms``), peak device
+            memory and the launches, exactly kernel D (and A unit on rmat)
+            once per iteration; finite coordinates;
   lj        the flat step on the LJ phase's six plans: host seconds of
             prepare_tiled, ms per iteration and stored entries per second
             as in the flat phase, launches (bf16x and exact must run);
@@ -202,13 +210,14 @@ Phases, one JSON line each:
             one-shard halo step and the flat step in ms per iteration) and
             the LJ step probe (n and entries of the ordered rmat(22, 8),
             ms per iteration).
-Each path (main, entry, flat per graph, linlog, lj per plan, bf16 embed,
-portable embed, linlog embed, halo per graph, the sharded embed, the
-replicated pipeline and each replicated flat run, each rank's three
-paths, the device hierarchy, the device chain, the card-only embed) is
-driven with the launch counts set to 0 just before it and read just
-after; the subprocesses (the CLI, the LJ-scale driver, the staged configs,
-the quickstart and the drivers at scale) report their own.
+Each path (main, entry, flat per graph, linlog, bench per workload, lj
+per plan, bf16 embed, portable embed, linlog embed, halo per graph, the
+sharded embed, the replicated pipeline and each replicated flat run,
+each rank's three paths, the device hierarchy, the device chain, the
+card-only embed) is driven with the launch counts set to 0 just before
+it and read just after; the subprocesses (the CLI, the LJ-scale
+driver, the staged configs, the quickstart and the drivers at scale)
+report their own.
 Then the nvidia-smi line, the kernel summary as one JSON object (per
 kernel: launches on its path, error, ms on the card alone, host_ms to
 enqueue it, and plain ms as measured, the
@@ -400,38 +409,12 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 
 
 def device_ms(fn, reps: int = 20, warmup: int = 3) -> tuple[float, float]:
-    """(median milliseconds of ``fn`` on the card alone, median
-    milliseconds the host takes to enqueue it).  Each timing enqueues
-    ``fn`` behind a device sleep that outlasts the host's enqueueing, so
-    the events around ``fn`` see the card's work back to back, without the
-    host's dispatch between launches (which ``cuda_ms`` sees wherever
-    dispatch is slower than the card)."""
-    import torch
+    """(ms of ``fn`` on the card alone, ms the host takes to enqueue it):
+    ``utils.profiling.device_ms``, which ``bench_torch.py`` times with too
+    (scripts/torch_kernel_ab.py reads it here)."""
+    from graph_embed_tpu_torch.utils.profiling import device_ms as on_card
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    cycles = 1 << 21
-    dev, host = [], []
-    while len(dev) < reps:
-        e0, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
-        t0 = time.perf_counter()
-        e0.record()
-        torch.cuda._sleep(cycles)
-        a.record()
-        t1 = time.perf_counter()
-        fn()
-        b.record()
-        t2 = time.perf_counter()
-        b.synchronize()
-        if (t2 - t0) * 1e3 >= e0.elapsed_time(a):
-            # the card woke before the host had enqueued fn: sleep longer
-            require(cycles < 1 << 34, "device_ms: the sleep outlasts fn")
-            cycles *= 2
-            continue
-        dev.append(a.elapsed_time(b))
-        host.append((t2 - t1) * 1e3)
-    return statistics.median(dev), statistics.median(host)
+    return on_card(fn, reps=reps, warmup=warmup)
 
 
 def max_err(got, want) -> tuple[float, float]:
@@ -1557,6 +1540,41 @@ def phase_flat(torch, flat: dict, dev) -> dict:
              entries_per_second=edges_per_second(g.num_edges, 1, ms / 1e3),
              launches=path)
     return launches
+
+
+def phase_bench(torch, flat: dict, dev) -> None:
+    """bench_torch.py's timed loop, in this process, on the flat phase's
+    plans of bench.py's two workloads: the host clock's entries/s beside
+    the card's view of the same calls, and each path's launches."""
+    import math
+
+    import bench_torch as BT
+    from graph_embed_tpu_torch.forceatlas import tiled as TL
+
+    t0 = time.perf_counter()
+    for workload, name in (("mesh", f"mesh3d({MESH_SIDE})"),
+                           ("scattered", "rmat(20,8)")):
+        g, tfa, prep = flat[name]
+        if workload == "scattered":
+            # bench.py plans the rmat at (4096, 4096, 1024), setup_flat at
+            # the default shape: both give the reference's n_pad, on which
+            # the plan depends, so the plan is the same
+            require(TL.reference_shape(g.n, True, "f32",
+                                       *BT.SCATTERED_SHAPE)[3]
+                    == TL.reference_shape(g.n, True)[3],
+                    "bench.py's rmat shape plans as the default one does")
+        rec = BT.time_plan(g, tfa, BT.bench_params(FLAT_SAMPLES),
+                           iters_per_call=FLAT_ITERS, repeats=FLAT_REPEATS)
+        want = {"fused_step": 1}
+        if workload == "scattered":
+            want["edge_spmm[unit]"] = 1
+        require(rec["launches_per_iteration"] == want,
+                f"bench {workload}: launches per iteration {want}")
+        require(math.isfinite(rec["checksum"]),
+                f"bench {workload}: finite coordinates")
+        emit(phase="bench", workload=workload, graph=name,
+             prepare_tiled_seconds=prep, **rec)
+    emit(phase="bench", seconds=time.perf_counter() - t0)
 
 
 def phase_determinism(torch, flat: dict, lj: dict, dev) -> None:
@@ -3284,6 +3302,7 @@ def main() -> int:
     phase_reference(torch, dev)
     launches, f32_wall, main_coords = phase_main(torch, g, dev, 0.1)
     flat_launches = phase_flat(torch, flat, dev)
+    phase_bench(torch, flat, dev)
     lj_launches = phase_lj(torch, lj, dev)
     phase_bf16_embed(torch, g, dev, f32_wall)
     for name, errs in phase_portable_embeds(torch, g, res, dev,
