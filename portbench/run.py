@@ -1,0 +1,20 @@
+"""Run one cell of the benchmark once (see portbench/harness.py):
+
+    python3 portbench/run.py --workload <cell> --seed <n> \
+        --seconds <s> --trace <0|1>
+"""
+
+import time
+
+T0 = time.perf_counter()  # set-up counts from here
+
+import os  # noqa: E402
+import sys  # noqa: E402
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+from portbench import harness  # noqa: E402
+
+if __name__ == "__main__":
+    sys.exit(harness.main(t0=T0))
