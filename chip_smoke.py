@@ -851,7 +851,6 @@ def phase_lj(torch, lj: dict, dev) -> dict:
     """The flat step on each LJ plan; launches per plan.  Each plan's ms
     per iteration joins its entry of ``lj``."""
     from graph_embed_tpu_torch.ops import cuda
-    from graph_embed_tpu_torch.utils.profiling import edges_per_second
 
     launches = {}
     for name, (g, tfa, params, prep) in list(lj.items()):
@@ -879,7 +878,7 @@ def phase_lj(torch, lj: dict, dev) -> dict:
              prepare_tiled_seconds=prep, iterations=FLAT_ITERS,
              repeats=FLAT_REPEATS, ms_per_iteration=ms,
              ms_per_iteration_all=times,
-             entries_per_second=edges_per_second(g.num_edges, 1, ms / 1e3),
+             entries_per_second=g.num_edges / (ms / 1e3),
              launches=path)
     require(launches["community bf16"].get("edge_spmm[bf16x]", 0) > 0,
             "the bf16 plan gathers bf16 pairs")
@@ -1280,32 +1279,10 @@ def level0_refine_ms(records: list) -> float:
     return level0["seconds"] * 1e3 / REFINE_ITERATIONS
 
 
-def counting_logger():
-    """A MetricsLogger whose records carry the launch counts at their close
-    (``launch_total``, for ``span_launches``)."""
-    import graph_embed_tpu_torch as gp
-    from graph_embed_tpu_torch.ops import cuda
-
-    class CountingLogger(gp.MetricsLogger):
-        def log(self, **record):
-            record["launch_total"] = dict(cuda.LAUNCHES)
-            return super().log(**record)
-
-    return CountingLogger()
-
-
 def span_launches(records: list) -> list:
     """Each span record with the kernel launches made inside it (the
-    difference of the counts logged at its close and at the previous
-    one's)."""
-    from collections import Counter
-
-    out, prev = [], Counter()
-    for rec in records:
-        now = Counter(rec.pop("launch_total"))
-        out.append(dict(rec, launches=dict(now - prev)))
-        prev = now
-    return out
+    logger's ``launches``; {} where it launched none)."""
+    return [dict(rec, launches=rec.get("launches", {})) for rec in records]
 
 
 def phase_portable_embeds(torch, g, res, dev, main_coords) -> dict:
@@ -1342,7 +1319,7 @@ def phase_portable_embeds(torch, g, res, dev, main_coords) -> dict:
             require(bool(torch.isfinite(coords).all()),
                     f"{name}: level {level} finite")
 
-        metrics = counting_logger()
+        metrics = gp.MetricsLogger()
         torch.cuda.synchronize()
         cuda.LAUNCHES.clear()
         t0 = time.perf_counter()
@@ -1503,7 +1480,6 @@ def drive_steps(torch, tfa, params, dev, iters: int, seed: int = 0):
 def phase_flat(torch, flat: dict, dev) -> dict:
     """The tiled step at the bench's widths; launches per path."""
     from graph_embed_tpu_torch.ops import cuda
-    from graph_embed_tpu_torch.utils.profiling import edges_per_second
 
     launches = {}
     for name, needs in ((f"mesh3d({MESH_SIDE})", ("fused_step",)),
@@ -1537,7 +1513,7 @@ def phase_flat(torch, flat: dict, dev) -> dict:
              stored_entries=g.num_edges, prepare_tiled_seconds=prep,
              iterations=iters, repeats=repeats, ms_per_iteration=ms,
              ms_per_iteration_all=times,
-             entries_per_second=edges_per_second(g.num_edges, 1, ms / 1e3),
+             entries_per_second=g.num_edges / (ms / 1e3),
              launches=path)
     return launches
 
@@ -2074,7 +2050,7 @@ def phase_replicated(torch, g, res, lj, flat, main_coords, dev):
     dense_bytes = 4 * (n_pad // HALO_SHARDS) * n_pad
     outs, walls = [], []
     for ndev in (HALO_SHARDS, 1):
-        metrics = counting_logger()
+        metrics = gp.MetricsLogger()
         torch.cuda.synchronize()
         cuda.LAUNCHES.clear()
         t0 = time.perf_counter()
@@ -2374,6 +2350,7 @@ def phase_profile(torch, g, res, flat, kernels, main_coords, dev) -> None:
     from graph_embed_tpu_torch.forceatlas import multilevel_tiled as MT
     from graph_embed_tpu_torch.utils import profiling
     from graph_embed_tpu_torch.utils.params import MultilevelFAParams
+    from graph_embed_tpu_torch.utils.timing import MetricsLogger
 
     t0 = time.perf_counter()
     rg, tfa = flat["rmat(20,8) linlog"][:2]
@@ -2384,10 +2361,11 @@ def phase_profile(torch, g, res, flat, kernels, main_coords, dev) -> None:
     coords_A = project_to_levels(main_coords, res.levels[:1])[1]
     r_A = torch.full((part.num_aggs,), 0.05, device=dev)
     torch.cuda.synchronize()
+    metrics = MetricsLogger()
     with profiling.trace(TRACE_DIR) as prof:
-        with profiling.annotate("linlog flat step"):
+        with metrics.span("linlog flat step", dev):
             x = drive_steps(torch, tfa, params, dev, FLAT_ITERS)
-        with profiling.annotate("level-0 slot-space refine"):
+        with metrics.span("level-0 slot-space refine", dev):
             y = MT.refine_level_tiled(level0, part, coords_A, r_A, 3,
                                       iterations=REFINE_ITERATIONS,
                                       layout=layout)
@@ -2537,12 +2515,7 @@ def phase_device_partition(torch, g, res, native_s: float, flat: dict, dev,
              torch, rd, rn))
     require(same, "device hierarchy of rmat(20, 8) equals the native one")
 
-    class CountingLogger(gp.MetricsLogger):
-        def log(self, **record):
-            record["launches"] = dict(cuda.LAUNCHES)
-            return super().log(**record)
-
-    metrics = CountingLogger()
+    metrics = gp.MetricsLogger()
     cuda.LAUNCHES.clear()
     t0 = time.perf_counter()
     coords, eres = gp.embed_graph(gd, 3, device=dev, coarsening_factor=0.1,

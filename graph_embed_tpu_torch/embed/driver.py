@@ -40,6 +40,7 @@ from ..parallel.sharded_ml import (prepare_refine_sharded,
 from ..partition.hierarchy import partition_hierarchy
 from ..partition.interpolation import Partition
 from ..utils.device import resolve
+from ..utils import timing
 from ..utils.params import ForceAtlasParams, MultilevelFAParams
 from ..utils.timing import MetricsLogger
 from .radii import radii_inner, radii_top_level, renormalize_into_parents
@@ -132,7 +133,9 @@ def embed(graphs: list[Graph], parts: list[Partition], dim: int = 3, *,
     it was packed into.
     ``metrics`` receives one record per phase (base with the repulsion it
     ran, radii, layout: the host's layout prep, refine with its ``route``;
-    "resume" when a store supplies levels).
+    "resume" when a store supplies levels) and is the current logger for
+    the call (``utils.timing.use``): the phases' records carry the
+    sub-spans, counts and kernel launches made inside them.
     ``final_block`` replaces level 0's refinement with a building block
     (``via.any_to_multilevel``; the embedViaMultilevel hook,
     src/embed.cpp:332), called as ``final_block(A_0, P_0, coords_A, r_A,
@@ -178,112 +181,121 @@ def embed(graphs: list[Graph], parts: list[Partition], dim: int = 3, *,
             "the reference's sharded refinement folds attraction into its "
             "SpMV tiles and drops the log term (reference fault 8, ROADMAP "
             "queue 3), and the port does not copy it")
-    device = resolve(device)
-    if mesh is not None and mesh.device != device:
-        raise ValueError(f"the mesh lives on {mesh.device}, the embed runs "
-                         f"on {device}")
-    graphs = [g.to(device) for g in graphs]
-    parts = [p.to(device) for p in parts]
-    base_params = base_params or ForceAtlasParams()
-    if base_iterations is None:
-        base_iterations = default_base_iterations(graphs[k].n, base_params)
-    seeds = _level_seeds(seed, k)
-    warm = None
-    if coords0 is not None:
-        warm = project_to_levels(
-            torch.as_tensor(coords0).to(device, graphs[0].dtype), parts)
-
     metrics = metrics or MetricsLogger()
-    r_Ac = coords_Ac = None
-    if resume_from is not None:
-        data = store.load_level(resume_from)
+    with timing.use(metrics):
+        device = resolve(device)
+        if mesh is not None and mesh.device != device:
+            raise ValueError(f"the mesh lives on {mesh.device}, the embed "
+                             f"runs on {device}")
+        graphs = [g.to(device) for g in graphs]
+        parts = [p.to(device) for p in parts]
+        base_params = base_params or ForceAtlasParams()
+        if base_iterations is None:
+            base_iterations = default_base_iterations(graphs[k].n, base_params)
+        seeds = _level_seeds(seed, k)
 
-        def load(name):
-            return torch.from_numpy(data[name]).to(device, graphs[0].dtype)
+        def warm_start():
+            # a card-only partition's maps go to the host here: inside the
+            # first phase, or counted on the resume record
+            if coords0 is None:
+                return None
+            return project_to_levels(
+                torch.as_tensor(coords0).to(device, graphs[0].dtype), parts)
 
-        coords_A = load("coords")
-        if "r_A" in data:
-            r_Ac, coords_Ac = load("r_A"), load("coords_parent")
-        metrics.log(phase="resume", level=resume_from)
-    else:
-        on_mesh = mesh is not None and graphs[k].n >= mesh_min_n
-        params_k = base_params
-        if on_mesh:
-            # the halo step samples always; the replicated step drops to
-            # sampling where its dense block would not fit
-            params_k = dataclasses.replace(base_params, repulsion=(
-                "sampled" if sharding == "halo" else
-                resolved_repulsion(graphs[k], mesh.ndev, base_params)))
-        with metrics.span("base", device, level=k, n=graphs[k].n,
-                          repulsion=params_k.repulsion):
-            warm_k = warm[k] if warm is not None else None
-            if on_mesh:
-                if sharding == "halo":
-                    coords_A = _halo_base_case(
-                        graphs[k], dim, mesh, params_k, base_iterations,
-                        seeds[k], warm_k, order=base_order)
-                else:
-                    coords_A = sharded_force_atlas(
-                        graphs[k], dim, mesh=mesh, params=params_k,
-                        iterations=base_iterations, seed=seeds[k],
-                        coords0=warm_k, device=mesh.device)
-            else:
-                coords_A = force_atlas(graphs[k], dim, seed=seeds[k],
-                                       params=base_params,
-                                       iterations=base_iterations,
-                                       coords=warm_k, device=device)
-        if store is not None:
-            store.save_level(k, coords=coords_A)
-    portable = refine_backend == "portable" or refine_params.linlog
-    for l in range(start, -1, -1):
-        A_c = graphs[l + 1]
-        with metrics.span("radii", device, level=l, m=A_c.n):
-            if r_Ac is None:
-                s, r, _ = A_c.to_coo_numpy()
-                r_A = radii_top_level(coords_A, coarse_edges=(s, r))
-            else:
-                r_A = radii_inner(coords_A, r_Ac, A_c, parts[l + 1])
-                coords_A, r_A = renormalize_into_parents(
-                    coords_A, r_A, coords_Ac, r_Ac, parts[l + 1])
-        local0 = None
-        if warm is not None:
-            # the warm fine layout in each aggregate's local frame
-            v2a = parts[l].vertex_to_agg
-            local0 = ((warm[l] - coords_A[v2a])
-                      / torch.clamp(r_A[v2a], min=1e-9)[:, None])
-        span = dict(level=l, n=graphs[l].n, num_aggs=parts[l].num_aggs)
-        if l == 0 and final_block is not None:
-            with metrics.span("refine", device, route="final_block", **span):
-                coords = final_block(graphs[0], parts[0], coords_A, r_A,
-                                     dim, seed=seeds[0])
+        r_Ac = coords_Ac = None
+        if resume_from is not None:
+            data = store.load_level(resume_from)
+
+            def load(name):
+                return torch.from_numpy(data[name]).to(device, graphs[0].dtype)
+
+            coords_A = load("coords")
+            if "r_A" in data:
+                r_Ac, coords_Ac = load("r_A"), load("coords_parent")
+            warm = warm_start()
+            metrics.log(phase="resume", level=resume_from)
         else:
-            sharded = mesh is not None and graphs[l].n >= mesh_min_n
-            route = ("sharded" if sharded else
-                     "portable" if portable else "tiled")
-            prepare, refine = _ROUTES[route]
-            with metrics.span("layout", device, level=l, n=graphs[l].n):
-                layout = prepare(graphs[l], parts[l], refine_params,
-                                 **(dict(ndev=mesh.ndev,
-                                         shards=mesh.local_shards)
-                                    if sharded else {}))
-            with metrics.span("refine", device, route=route, **span):
-                coords = refine(graphs[l], parts[l], coords_A, r_A, dim,
-                                seed=seeds[l], iterations=refine_iterations,
-                                params=refine_params, layout=layout,
-                                coords0=local0,
-                                **({"mesh": mesh} if sharded else
-                                   {"device": device} if route == "portable"
-                                   else {}))
-        if on_level is not None:
-            on_level(l, coords, parts[l], coords_A, r_A)
-        if store is not None:
-            # what a resume below this level needs: its coordinates, the
-            # parent radii and the renormalized parent centres
-            store.save_level(l, coords=coords, r_A=r_A,
-                             coords_parent=coords_A)
-        coords_Ac, r_Ac = coords_A, r_A
-        coords_A = coords
-    return coords_A
+            on_mesh = mesh is not None and graphs[k].n >= mesh_min_n
+            params_k = base_params
+            if on_mesh:
+                # the halo step samples always; the replicated step drops to
+                # sampling where its dense block would not fit
+                params_k = dataclasses.replace(base_params, repulsion=(
+                    "sampled" if sharding == "halo" else
+                    resolved_repulsion(graphs[k], mesh.ndev, base_params)))
+            with metrics.span("base", device, level=k, n=graphs[k].n,
+                              repulsion=params_k.repulsion):
+                warm = warm_start()
+                warm_k = warm[k] if warm is not None else None
+                if on_mesh:
+                    if sharding == "halo":
+                        coords_A = _halo_base_case(
+                            graphs[k], dim, mesh, params_k, base_iterations,
+                            seeds[k], warm_k, order=base_order)
+                    else:
+                        coords_A = sharded_force_atlas(
+                            graphs[k], dim, mesh=mesh, params=params_k,
+                            iterations=base_iterations, seed=seeds[k],
+                            coords0=warm_k, device=mesh.device)
+                else:
+                    coords_A = force_atlas(graphs[k], dim, seed=seeds[k],
+                                           params=base_params,
+                                           iterations=base_iterations,
+                                           coords=warm_k, device=device)
+            if store is not None:
+                store.save_level(k, coords=coords_A)
+        portable = refine_backend == "portable" or refine_params.linlog
+        for l in range(start, -1, -1):
+            A_c = graphs[l + 1]
+            with metrics.span("radii", device, level=l, m=A_c.n):
+                if r_Ac is None:
+                    s, r, _ = A_c.to_coo_numpy()
+                    r_A = radii_top_level(coords_A, coarse_edges=(s, r))
+                else:
+                    r_A = radii_inner(coords_A, r_Ac, A_c, parts[l + 1])
+                    coords_A, r_A = renormalize_into_parents(
+                        coords_A, r_A, coords_Ac, r_Ac, parts[l + 1])
+            local0 = None
+            if warm is not None:
+                # the warm fine layout in each aggregate's local frame
+                v2a = parts[l].vertex_to_agg
+                local0 = ((warm[l] - coords_A[v2a])
+                          / torch.clamp(r_A[v2a], min=1e-9)[:, None])
+            span = dict(level=l, n=graphs[l].n, num_aggs=parts[l].num_aggs)
+            if l == 0 and final_block is not None:
+                with metrics.span("refine", device, route="final_block",
+                                  **span):
+                    coords = final_block(graphs[0], parts[0], coords_A, r_A,
+                                         dim, seed=seeds[0])
+            else:
+                sharded = mesh is not None and graphs[l].n >= mesh_min_n
+                route = ("sharded" if sharded else
+                         "portable" if portable else "tiled")
+                prepare, refine = _ROUTES[route]
+                with metrics.span("layout", device, level=l, n=graphs[l].n):
+                    layout = prepare(graphs[l], parts[l], refine_params,
+                                     **(dict(ndev=mesh.ndev,
+                                             shards=mesh.local_shards)
+                                        if sharded else {}))
+                with metrics.span("refine", device, route=route, **span):
+                    coords = refine(graphs[l], parts[l], coords_A, r_A, dim,
+                                    seed=seeds[l],
+                                    iterations=refine_iterations,
+                                    params=refine_params, layout=layout,
+                                    coords0=local0,
+                                    **({"mesh": mesh} if sharded else
+                                       {"device": device}
+                                       if route == "portable" else {}))
+            if on_level is not None:
+                on_level(l, coords, parts[l], coords_A, r_A)
+            if store is not None:
+                # what a resume below this level needs: its coordinates, the
+                # parent radii and the renormalized parent centres
+                store.save_level(l, coords=coords, r_A=r_A,
+                                 coords_parent=coords_A)
+            coords_Ac, r_Ac = coords_A, r_A
+            coords_A = coords
+        return coords_A
 
 
 def _halo_base_case(g: Graph, dim: int, mesh, params: ForceAtlasParams,
@@ -337,18 +349,20 @@ def embed_graph(g: Graph, dim: int = 3, *, device="cuda",
     examples/embed.cpp:93-100 pipeline as one call).  The hierarchy takes
     the native coarsener, which emits the chain, when ``g`` has a host COO,
     and the device coarsener otherwise; the chain then comes from
-    ``build_galerkin_chain``, as in the reference.  Returns (coords on
+    ``build_galerkin_chain``, as in the reference.  ``metrics`` is the
+    current logger for the call, as in ``embed``.  Returns (coords on
     ``device``, HierarchyResult)."""
     device = resolve(device)
-    g = g.to(device)
     metrics = metrics or MetricsLogger()
-    with metrics.span("partition", device, n=g.n):
-        res = partition_hierarchy(g, coarsening_factor, emit_graphs=True)
-    if res.coarse_graphs is not None:
-        graphs = [g] + res.coarse_graphs
-    else:
-        with metrics.span("galerkin", device, levels=len(res.levels)):
-            graphs = build_galerkin_chain(g, res.levels)
-    coords = embed(graphs, res.levels, dim, device=device, metrics=metrics,
-                   **embed_kw)
+    with timing.use(metrics):
+        g = g.to(device)
+        with metrics.span("partition", device, n=g.n):
+            res = partition_hierarchy(g, coarsening_factor, emit_graphs=True)
+        if res.coarse_graphs is not None:
+            graphs = [g] + res.coarse_graphs
+        else:
+            with metrics.span("galerkin", device, levels=len(res.levels)):
+                graphs = build_galerkin_chain(g, res.levels)
+        coords = embed(graphs, res.levels, dim, device=device,
+                       metrics=metrics, **embed_kw)
     return coords, res

@@ -22,6 +22,7 @@ import torch
 from ..graph.csr import Graph
 from ..ops import edge_spmm as ES
 from ..partition.hierarchy import partition_num_parts
+from ..utils import timing
 from ..utils.device import resolve
 from ..utils.params import ForceAtlasParams
 from . import farfield as FF
@@ -139,10 +140,11 @@ def force_atlas(g: Graph, dim: int = 2, *, coords=None, seed: int = 0,
             groups = partition_num_parts(g, max(32, g.n // 64))
         groups = FF.Groups.build(groups, g.device)
     forces_prev = torch.zeros_like(coords)
-    for _ in range(iterations):
-        coords, forces_prev = fa_step(coords, forces_prev, g, deg, params,
-                                      attraction=attraction, generator=gen,
-                                      groups=groups)
+    with timing.span("base.loop", iterations=iterations):
+        for _ in range(iterations):
+            coords, forces_prev = fa_step(coords, forces_prev, g, deg, params,
+                                          attraction=attraction,
+                                          generator=gen, groups=groups)
     if params.normalize:
         coords = F.normalize_coords(coords)
     return coords

@@ -37,6 +37,7 @@ from ..graph.csr import Graph
 from ..ops import cuda
 from ..ops import edge_spmm as ES
 from ..partition.interpolation import Partition
+from ..utils import timing
 from ..utils.params import MultilevelFAParams
 from . import forces as F
 from .multilevel import external_pull, sender_csr
@@ -248,45 +249,48 @@ def slot_layout(g: Graph, v2a, counts, params: MultilevelFAParams,
     listing theirs in that order (one process's shards of
     ``parallel.sharded_ml``).  Host numpy, tensors on ``g``'s device."""
     dev = g.device
-    s, r, w = g.to_coo_numpy()
-    if vertices is not None:
-        # the entries among them, in their order (an intra-aggregate
-        # entry has both ends in one aggregate)
-        local = np.full(g.n, -1, dtype=np.int64)
-        local[vertices] = np.arange(len(vertices))
-        keep = (local[s] >= 0) & (local[r] >= 0)
-        s, r, w = local[s[keep]], local[r[keep]], np.asarray(w)[keep]
-        v2a = np.asarray(v2a)[vertices]
-    n = v2a.size
-    slot_of_vertex = vertex_slots(v2a, np.bincount(v2a,
-                                                   minlength=counts.size),
-                                  slot_start)
-    valid = np.zeros(n_slots, dtype=bool)
-    valid[slot_of_vertex] = True
+    with timing.span("layout.slots"):
+        s, r, w = g.to_coo_numpy()
+        if vertices is not None:
+            # the entries among them, in their order (an intra-aggregate
+            # entry has both ends in one aggregate)
+            local = np.full(g.n, -1, dtype=np.int64)
+            local[vertices] = np.arange(len(vertices))
+            keep = (local[s] >= 0) & (local[r] >= 0)
+            s, r, w = local[s[keep]], local[r[keep]], np.asarray(w)[keep]
+            v2a = np.asarray(v2a)[vertices]
+        n = v2a.size
+        slot_of_vertex = vertex_slots(
+            v2a, np.bincount(v2a, minlength=counts.size), slot_start)
+        valid = np.zeros(n_slots, dtype=bool)
+        valid[slot_of_vertex] = True
 
-    both = v2a[s] == v2a[r]
-    intra = both & (s != r)
-    deg_np = np.bincount(s[both], weights=(np.asarray(w, np.float64)[both]
-                                           if params.use_weights else None),
-                         minlength=n).astype(np.float64)
-    folded = F.fold_edge_weights(w, deg_np[s], use_weights=params.use_weights,
-                                 delta=params.delta, nohubs=params.nohubs)
-    fw = np.asarray(folded)[intra]
-    unit = bool(intra.any()) and bool(np.all(fw == 1.0))
-    keep = fw != 0.0
-    ss = slot_of_vertex[s[intra][keep]]
-    rr = slot_of_vertex[r[intra][keep]]
-    paired = False
-    if unit and params.x_precision == "bf16" and ref_start is not None:
-        # the reference's slots: the same aggregate and member order on its
-        # own aligned bucket bases
-        ref_slot = vertex_slots(v2a, counts, ref_start)
-        paired = _reference_pairs_slots(ref_slot[s[intra]],
-                                        ref_slot[r[intra]],
-                                        -(-ref_slots // 128) * 128)
-    csr, deg_w = ES.build_csr(ss, rr, None if unit else
-                              ES.truncate_bf16(fw[keep]), n_slots,
-                              device=dev, bf16_gather=paired)
+        both = v2a[s] == v2a[r]
+        intra = both & (s != r)
+        deg_np = np.bincount(
+            s[both], weights=(np.asarray(w, np.float64)[both]
+                              if params.use_weights else None),
+            minlength=n).astype(np.float64)
+        folded = F.fold_edge_weights(w, deg_np[s],
+                                     use_weights=params.use_weights,
+                                     delta=params.delta, nohubs=params.nohubs)
+        fw = np.asarray(folded)[intra]
+        unit = bool(intra.any()) and bool(np.all(fw == 1.0))
+        keep = fw != 0.0
+        ss = slot_of_vertex[s[intra][keep]]
+        rr = slot_of_vertex[r[intra][keep]]
+        paired = False
+        if unit and params.x_precision == "bf16" and ref_start is not None:
+            # the reference's slots: the same aggregate and member order on
+            # its own aligned bucket bases
+            ref_slot = vertex_slots(v2a, counts, ref_start)
+            paired = _reference_pairs_slots(ref_slot[s[intra]],
+                                            ref_slot[r[intra]],
+                                            -(-ref_slots // 128) * 128)
+    with timing.span("layout.csr"):
+        csr, deg_w = ES.build_csr(ss, rr, None if unit else
+                                  ES.truncate_bf16(fw[keep]), n_slots,
+                                  device=dev, bf16_gather=paired)
 
     deg_loc = np.zeros(n_slots, np.float32)
     deg_loc[slot_of_vertex] = deg_np

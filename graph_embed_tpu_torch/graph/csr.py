@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..ops import segment
+from ..utils import timing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,11 +64,16 @@ class Graph:
             weights=self.weights.to(device))
 
     def to_coo_numpy(self):
-        """(senders, receivers, weights) as numpy arrays."""
+        """(senders, receivers, weights) as numpy arrays.  A graph without
+        a host COO copies its tensors on every call; from a CUDA device the
+        bytes count as ``graph_to_host_bytes`` (``utils.timing.count``)."""
         if self.host_coo is not None:
             return self.host_coo
-        return (self.senders.cpu().numpy(), self.receivers.cpu().numpy(),
-                self.weights.cpu().numpy())
+        coo = (self.senders.cpu().numpy(), self.receivers.cpu().numpy(),
+               self.weights.cpu().numpy())
+        if self.device.type == "cuda":
+            timing.count("graph_to_host_bytes", sum(a.nbytes for a in coo))
+        return coo
 
     def row_counts(self) -> torch.Tensor:
         """[n] number of stored entries per row (unweighted degree)."""

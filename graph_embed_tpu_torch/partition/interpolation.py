@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from ..ops import segment
+from ..utils import timing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,8 +48,12 @@ class Partition:
                                    vertex_to_agg=self.vertex_to_agg.to(device))
 
     def vertex_to_agg_numpy(self) -> np.ndarray:
+        """The int32 host map; without ``host_v2a`` a copy on every call,
+        whose bytes count as ``graph_to_host_bytes`` from a CUDA device."""
         if self.host_v2a is not None:
             return self.host_v2a
+        if self.device.type == "cuda":
+            timing.count("graph_to_host_bytes", self.vertex_to_agg.nbytes)
         return self.vertex_to_agg.cpu().numpy().astype(np.int32)
 
     def agg_sizes(self) -> torch.Tensor:

@@ -1,11 +1,14 @@
 """Profiler integration.
 
 Counterpart of graph_embed_tpu/utils/profiling.py: ``torch.profiler``
-traces in place of ``jax.profiler`` ones, beside the per-phase spans of
-``utils.timing``; ``device_ms`` splits a call's time into the card's and
-the host's (bench_torch.py, chip_smoke.py).  The reference's persistent
-compilation cache (``enable_compilation_cache``, ``_host_fingerprint``)
-is XLA tooling and is not carried over.
+traces in place of ``jax.profiler`` ones, in which the spans of
+``utils.timing`` (the program's phases and ``timing.span``'s sub-spans)
+appear as named regions above the kernels; ``device_ms`` splits a call's
+time into the card's and the host's (bench_torch.py, chip_smoke.py).
+Not carried over: the reference's persistent compilation cache
+(``enable_compilation_cache``, ``_host_fingerprint``), XLA tooling;
+``annotate`` (``timing.span`` names a region) and ``edges_per_second``
+(one product, computed where it is reported).
 """
 
 from __future__ import annotations
@@ -36,16 +39,6 @@ def trace(logdir: str | None = None):
     with torch.profiler.profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
-
-
-def annotate(name: str):
-    """A named region inside a trace (``record_function``)."""
-    return torch.profiler.record_function(name)
-
-
-def edges_per_second(num_edges: int, iterations: int, seconds: float) -> float:
-    """The north-star metric (BASELINE.md): stored entries traversed/s."""
-    return num_edges * iterations / seconds
 
 
 def device_ms(fn, reps: int = 20, warmup: int = 3) -> tuple[float, float]:

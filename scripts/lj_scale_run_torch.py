@@ -329,33 +329,29 @@ def device_busy_seconds(events) -> float:
 
 
 def span_logger(path, device_time=False):
-    """The embed's MetricsLogger: each record also carries the kernel
-    launches made since the previous one, and goes to a JSONL file.  With
-    ``device_time`` each span runs under ``torch.profiler`` (CUDA activity
-    only) and its record gains ``device_seconds``, the time in which the
-    card was busy inside it (``device_busy_seconds``)."""
+    """The embed's MetricsLogger: each record also goes to a JSONL file,
+    with the kernel launches made inside it (the logger's ``launches``; {}
+    where it launched none).  With ``device_time`` each span runs under
+    ``torch.profiler`` (CUDA activity only) and its record gains
+    ``device_seconds``, the time in which the card was busy inside it
+    (``device_busy_seconds``)."""
     import contextlib
 
     import torch
 
-    from graph_embed_tpu_torch.ops import cuda
     from graph_embed_tpu_torch.utils.timing import MetricsLogger
 
     class SpanLogger(MetricsLogger):
         def __init__(self):
             super().__init__()
-            self._seen = dict(cuda.LAUNCHES)
             self._fh = open(path, "a")
 
         def log(self, **record):
-            now = dict(cuda.LAUNCHES)
-            record["launches"] = {k: v - self._seen.get(k, 0)
-                                  for k, v in now.items()
-                                  if v != self._seen.get(k, 0)}
-            self._seen = now
+            record = super().log(**record)
+            record.setdefault("launches", {})
             self._fh.write(json.dumps(dict(record, t=time.time())) + "\n")
             self._fh.flush()
-            return super().log(**record)
+            return record
 
         @contextlib.contextmanager
         def span(self, phase, device=None, **fields):

@@ -1,6 +1,6 @@
 """The port's radii device sweep (``radii_inner(backend="bucketed")``), the
-native duplicate-summing COO sort behind ``from_coo`` and the timing
-helpers, against the JAX package and the numpy paths they replace
+native duplicate-summing COO sort behind ``from_coo``, against the JAX
+package and the numpy paths they replace
 (tests/test_embed.py:355-432, tests/test_native_pack.py)."""
 
 import filecmp
@@ -19,7 +19,6 @@ from graph_embed_tpu_torch import interop
 from graph_embed_tpu_torch.embed import radii as PR
 from graph_embed_tpu_torch.graph import csr as pcsr
 from graph_embed_tpu_torch.native import SRC_DIR, pack_lib
-from graph_embed_tpu_torch.utils.timing import Timer, time_fn
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -167,17 +166,3 @@ def test_pack_source_is_the_reference_copy():
     assert filecmp.cmp(os.path.join(SRC_DIR, "pack.cpp"),
                        os.path.join(REPO, "graph_embed_tpu", "native",
                                     "pack.cpp"), shallow=False)
-
-
-def test_timer_and_time_fn():
-    """Timer accumulates spans; time_fn is the median of its calls (the
-    upper one of an even count); on the CPU neither synchronizes."""
-    timer = Timer("t")
-    for _ in range(3):
-        with timer(device="cpu"):
-            sum(range(1000))
-    assert len(timer.spans) == 3 and timer.total == sum(timer.spans)
-    assert timer[0] == timer.spans[0] >= 0.0
-    calls = []
-    t = time_fn(lambda x: calls.append(x), 1, iters=4, warmup=2)
-    assert calls == [1] * 6 and t >= 0.0

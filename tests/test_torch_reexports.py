@@ -2,7 +2,8 @@
 the port's counterpart, and every public function of the JAX modules
 ported last (``parallel/multihost.py``, ``utils/profiling.py``) exists in
 the port's, apart from ROADMAP.md's "Not carried over" (the compilation
-cache).  The JAX files are read as source, not imported."""
+cache, ``annotate``, ``edges_per_second``).  The JAX files are read as
+source, not imported."""
 
 import ast
 import importlib
@@ -13,8 +14,11 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SUBPACKAGES = ("", "embed", "forceatlas", "graph", "harness", "native", "ops",
                "parallel", "partition", "utils")
-# XLA's persistent compilation cache (utils/profiling.py): TPU tooling
-NOT_CARRIED_OVER = {"enable_compilation_cache", "_host_fingerprint"}
+# XLA's persistent compilation cache (utils/profiling.py): TPU tooling;
+# its annotate (the port's timing.span names a region in a trace) and
+# edges_per_second (one product, computed where it is reported)
+NOT_CARRIED_OVER = {"enable_compilation_cache", "_host_fingerprint",
+                    "annotate", "edges_per_second"}
 
 
 def _bound(path: str) -> set:
