@@ -36,9 +36,10 @@ the host 1-2 ms an iteration captured.
 
 ``ops.cuda.LAUNCHES`` counts a replay's kernels as the capture counted
 them.  The ``base.loop`` sub-span counts ``base_graph_iterations`` and
-``base_graph_replays``, and ends by waiting on the current stream: replays
-return to the host long before the card finishes them, and the sub-span
-holds the loop's card work.
+``base_graph_replays``, and ``base_attraction_entries`` (the entries of
+the attraction CSR each iteration walks), and ends by waiting on the
+current stream: replays return to the host long before the card finishes
+them, and the sub-span holds the loop's card work.
 """
 
 from __future__ import annotations
@@ -187,6 +188,8 @@ def force_atlas(g: Graph, dim: int = 2, *, coords=None, seed: int = 0,
                        generator=gen, groups=groups)
 
     with timing.span("base.loop", iterations=iterations):
+        timing.count("base_attraction_entries",
+                     int(attraction.csr.col.numel()))
         if g.device.type == "cuda" and iterations >= GRAPH_MIN_ITERATIONS:
             coords, forces_prev = _replay_loop(
                 step, coords, forces_prev, iterations,

@@ -38,6 +38,7 @@ from ..graph.csr import Graph
 from ..ops import edge_spmm as ES
 from ..ops import segment
 from ..partition.interpolation import Partition
+from ..utils import timing
 from ..utils.device import resolve
 from ..utils.params import MultilevelFAParams
 from . import forces as F
@@ -48,20 +49,16 @@ from . import forces as F
 PAIR_BUDGET = 1 << 25
 
 
-def _member_rows(part: Partition):
-    """([m, max(count, 1)] member ids padded with n, counts) on the host:
-    row a lists aggregate a's vertices in increasing id."""
+def _sorted_members(part: Partition):
+    """The vertices sorted by aggregate, on the host: (order, the
+    aggregate of each, counts per aggregate, each one's place in its
+    aggregate's row); a row lists its vertices in increasing id."""
     v2a = part.vertex_to_agg_numpy()
-    m = part.num_aggs
-    n = v2a.shape[0]
     order = np.argsort(v2a, kind="stable")
-    counts = np.bincount(v2a, minlength=m)
+    agg = v2a[order]
+    counts = np.bincount(v2a, minlength=part.num_aggs)
     starts = np.concatenate([[0], np.cumsum(counts)])
-    pos = np.arange(n) - starts[v2a[order]]
-    full = np.full((m, max(int(counts.max()) if counts.size else 1, 1)), n,
-                   dtype=np.int64)
-    full[v2a[order], pos] = order
-    return full, counts
+    return order, agg, counts, np.arange(v2a.shape[0]) - starts[agg]
 
 
 def _round_up(v: int, k: int) -> int:
@@ -72,11 +69,11 @@ def build_members(part: Partition, *, pad_multiple: int = 8) -> np.ndarray:
     """[m, S] int32 member table (host): row a lists the vertex ids of
     aggregate a, padded with n; S is the largest aggregate rounded up to
     ``pad_multiple``."""
-    full, counts = _member_rows(part)
+    order, agg, counts, pos = _sorted_members(part)
     S = max(_round_up(int(counts.max()) if counts.size else 1,
                       pad_multiple), pad_multiple)
     out = np.full((part.num_aggs, S), part.n, dtype=np.int32)
-    out[:, :full.shape[1]] = full
+    out[agg, pos] = order
     return out
 
 
@@ -85,22 +82,27 @@ def build_member_buckets(part: Partition, *,
     """Member tables in power-of-two size classes (host int32, padded with
     n): aggregates of at most ``pad_multiple`` members, then at most twice
     that, and so on, so one large aggregate does not pad the many small
-    ones.  The classes and widths are the JAX package's."""
-    full, counts = _member_rows(part)
-    n = part.n
+    ones.  The classes and widths are the JAX package's.  Each class is
+    filled from the vertices sorted by aggregate, so no table is wider than
+    its class (a dense [m, largest] table pads every row of a power-law
+    level, hundreds of thousands of them, to its largest aggregate)."""
+    m, n = part.num_aggs, part.n
+    order, agg, counts, pos = _sorted_members(part)
+    largest = max(int(counts.max()) if counts.size else 1, 1)
     buckets = []
-    cap = pad_multiple
-    remaining = np.arange(part.num_aggs)
-    while remaining.size:
-        in_b = remaining[counts[remaining] <= cap]
-        remaining = remaining[counts[remaining] > cap]
+    lo, cap = -1, pad_multiple
+    while lo < largest and m:
+        in_b = np.flatnonzero((counts > lo) & (counts <= cap))
         if in_b.size:
-            w = min(cap, full.shape[1])
+            w = min(cap, largest)
             arr = np.full((in_b.size, _round_up(w, pad_multiple)), n,
                           dtype=np.int32)
-            arr[:, :w] = full[in_b, :w]
+            row = np.full(m, -1, dtype=np.int64)
+            row[in_b] = np.arange(in_b.size)
+            sel = row[agg] >= 0
+            arr[row[agg[sel]], pos[sel]] = order[sel]
             buckets.append(arr)
-        cap *= 2
+        lo, cap = cap, cap * 2
     if not buckets:
         buckets.append(np.full((1, pad_multiple), n, np.int32))
     return tuple(buckets)
@@ -263,7 +265,10 @@ class MultilevelLayout:
     host and placed on the graph's device: the member tables by size class,
     the intra-aggregate CSR and its row sums, the local degrees, the
     sender CSR of the cut-edge pull and the members-by-aggregate CSR of
-    the epilogue."""
+    the epilogue; and the repulsion's work per iteration: ``pairs``, the
+    ordered member pairs sum_a s_a (s_a - 1), ``padded_pairs``, what the
+    tables' [B, S, S] blocks compute, and ``largest``, the largest
+    aggregate."""
 
     members: tuple
     intra: ES.EdgeCSR
@@ -273,23 +278,38 @@ class MultilevelLayout:
     agg_csr: ES.EdgeCSR
     vertex_to_agg: torch.Tensor
     num_aggs: int
+    pairs: int
+    padded_pairs: int
+    largest: int
 
 
 def prepare_multilevel(g: Graph, part: Partition,
                        params: MultilevelFAParams) -> MultilevelLayout:
     """The portable refinement's tables of one level (host prep; the local
-    degrees are summed on the device by kernel A)."""
+    degrees are summed on the device by kernel A).  Sub-spans
+    ``ml.members`` (the member tables built and uploaded) and ``ml.intra``
+    (the local degrees and the intra-aggregate CSR, with the counter
+    ``ml_intra_entries``)."""
     part = part.to(g.device)
-    deg_loc = local_degrees(g, part, params.use_weights)
-    intra, rowsum = _intra_csr(g, part, deg_loc, params)
-    members = tuple(torch.from_numpy(t.astype(np.int64)).to(g.device)
-                    for t in build_member_buckets(part))
+    with timing.span("ml.intra"):
+        deg_loc = local_degrees(g, part, params.use_weights)
+        intra, rowsum = _intra_csr(g, part, deg_loc, params)
+        timing.count("ml_intra_entries", int(intra.col.numel()))
+    with timing.span("ml.members"):
+        tables = build_member_buckets(part)
+        members = tuple(torch.from_numpy(t.astype(np.int64)).to(g.device)
+                        for t in tables)
+    sizes = np.concatenate([(t < part.n).sum(axis=1) for t in tables])
     return MultilevelLayout(members=members, intra=intra,
                             intra_rowsum=rowsum, deg_loc=deg_loc,
                             sender_csr=sender_csr(g),
                             agg_csr=part.segment_csr(),
                             vertex_to_agg=part.vertex_to_agg,
-                            num_aggs=part.num_aggs)
+                            num_aggs=part.num_aggs,
+                            pairs=int(np.sum(sizes * (sizes - 1))),
+                            padded_pairs=sum(t.shape[0] * t.shape[1] ** 2
+                                             for t in tables),
+                            largest=int(sizes.max(initial=0)))
 
 
 def ml_forces(coords, layout: MultilevelLayout, pull_vec,
@@ -307,9 +327,11 @@ def ml_forces(coords, layout: MultilevelLayout, pull_vec,
     element."""
     eps = params.epsilon
     deg_p1 = layout.deg_loc + 1.0
-    rep = aggregate_repulsion(coords, layout.members, deg_p1, params.repel,
-                              eps, exact=params.repulsion == "exact",
-                              absolute=absolute)
+    with timing.span("ml.repulsion"):
+        rep = aggregate_repulsion(coords, layout.members, deg_p1,
+                                  params.repel, eps,
+                                  exact=params.repulsion == "exact",
+                                  absolute=absolute)
     mag = torch.clamp(torch.sqrt(torch.sum(coords * coords, dim=1)), min=eps)
     ext = pull_vec / mag[:, None]
     grav = -(coords / mag[:, None]) * (params.gravity * deg_p1)[:, None]
@@ -384,7 +406,10 @@ def force_atlas_multilevel(g: Graph, part: Partition, coords_A, r_A,
     (the reference re-randomizes at entry, :356-360), or at ``coords0``:
     [n, dim] warm-start offsets in the local aggregate frame.  ``layout``
     (``prepare_multilevel``, on ``device``) is built here when not
-    given."""
+    given.  The sub-span ``ml.loop`` holds the iterations and their card
+    work (it ends by waiting on the current stream) and counts the layout's
+    ``ml_pairs``, ``ml_padded_pairs`` and ``ml_largest_aggregate``; each
+    iteration's repulsion is a sub-span ``ml.repulsion`` inside it."""
     params = params or MultilevelFAParams()
     g = g.to(resolve(device))
     dev, dtype = g.device, g.dtype
@@ -401,5 +426,11 @@ def force_atlas_multilevel(g: Graph, part: Partition, coords_A, r_A,
                        device=dev) * 2.0 - 1.0
     else:
         x = torch.as_tensor(coords0).to(dev, dtype).contiguous()
-    x = ml_loop(x, layout, pull_vec, params, iterations)
+    with timing.span("ml.loop", iterations=iterations):
+        timing.count("ml_pairs", layout.pairs)
+        timing.count("ml_padded_pairs", layout.padded_pairs)
+        timing.count("ml_largest_aggregate", layout.largest)
+        x = ml_loop(x, layout, pull_vec, params, iterations)
+        if dev.type == "cuda":
+            torch.cuda.current_stream(dev).synchronize()
     return place_into_parents(x, layout, coords_A, r_A, params.epsilon)

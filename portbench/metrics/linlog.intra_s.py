@@ -1,0 +1,15 @@
+"""Seconds of the program's ``ml.intra`` sub-spans (the local degrees and
+the intra-aggregate CSR of the portable refinement: the host build and
+its upload), summed over an embed's levels and averaged over the
+window's embeds."""
+
+from portbench.metrics_common import _untraced
+
+
+def read(rec):
+    subs = [[sub["seconds"] for sp in e["spans"]
+             for sub in sp.get("sub", ()) if sub["name"] == "ml.intra"]
+            for e in _untraced(rec)]
+    if not any(subs):
+        return None
+    return sum(sum(s) for s in subs) / len(subs)
