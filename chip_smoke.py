@@ -72,16 +72,21 @@ Phases, one JSON line each:
             params: phase seconds beside the f32 embed's, bf16x launches in
             the level-0 refine;
   portable embed  embed on the main phase's hierarchy with
-            refine_backend='portable' (gram within-aggregate repulsion):
-            phase seconds and launches per span, level 0's refine ms per
-            iteration, kernel A in the refine phases, finite [n, 3] output
-            inside the parent balls, layout stress beside the main
-            embed's;
+            refine_backend='portable' (the within-aggregate repulsion on
+            kernel B over the member tables' slot view): phase seconds and
+            launches per span, level 0's refine ms per iteration, kernel A
+            in the refine phases and kernel B once an iteration in each,
+            finite [n, 3] output inside the parent balls, layout stress
+            beside the main embed's;
   linlog embed  the same with linlog in both params (every level refines
             through force_atlas_multilevel): the same fields, and kernel E
             in the refine phases; then one level-0 portable force
-            evaluation split by CUDA events (the gram repulsion per size
-            class and in all, the attraction, the whole ml_forces);
+            evaluation split by CUDA events (kernel B's repulsion per size
+            class and in all, the attraction, the whole ml_forces); then
+            kernels A, B and E against their plain versions at both
+            embeds' shapes, kernel B on each level's member tables and on
+            a partition with the 1,024-4,096 classes (a last table of
+            2,927 members) against the float64 sum;
   halo      the halo-sharded flat step at 8 shards (one card, shards
             stacked) on the LJ phase's community graph and partition-ordered
             rmat(20, 8): the plan (blk, B_max, boundary fraction, Ec_max,
@@ -267,6 +272,10 @@ HALO_ITERS = 10
 HALO_REPEATS = 3
 # refinement iterations per level, embed's default (embed.cpp:793)
 REFINE_ITERATIONS = 100
+# kernel B's held partition: (smallest, largest, count) of its aggregates'
+# sizes, from one-member aggregates to a last table 2,928 wide
+B_SIZES = ((1, 1, 200), (2, 32, 2000), (33, 512, 120), (513, 2048, 24),
+           (2049, 2927, 6), (2927, 2927, 1))
 # the multiprocess phase: ranks on the one card, their work directory
 # (inputs, rendezvous, results) and the seconds they may take
 MP_RANKS = 2
@@ -1291,11 +1300,12 @@ def phase_portable_embeds(torch, g, res, dev, main_coords) -> dict:
     within-aggregate repulsion, then linlog in both params (every level
     refines through force_atlas_multilevel, kernel E).  Each run is driven
     with the launch counts set to 0 just before it and read just after;
-    kernel A must launch in both refine phases, E in the linlog ones.
-    Phase seconds and launches per span, finite [n, 3] output, every
-    vertex inside its parent ball, layout stress beside the slot-space
-    embed's (for the record, not a gate).  Then kernels A and E are held
-    against their plain versions at these embeds' shapes
+    kernel A must launch in both refine phases, E in the linlog ones, and
+    B once an iteration in every refine phase (the within-aggregate
+    repulsion).  Phase seconds and launches per span, finite [n, 3]
+    output, every vertex inside its parent ball, layout stress beside the
+    slot-space embed's (for the record, not a gate).  Then kernels A, B
+    and E are held against their plain versions at these embeds' shapes
     (``portable_holds``, whose worst errors it returns)."""
     import graph_embed_tpu_torch as gp
     from graph_embed_tpu_torch.harness.runtests import layout_stress
@@ -1346,6 +1356,10 @@ def phase_portable_embeds(torch, g, res, dev, main_coords) -> dict:
                          if k.startswith("edge_spmm["))
         require(a_launches > 0, f"{name}: kernel A launched in the refine "
                 "phases")
+        require(all(sp["launches"].get("bucket_repulsion", 0)
+                    == REFINE_ITERATIONS for sp in refine),
+                f"{name}: kernel B launched once an iteration in each refine "
+                "phase")
         if "linlog" in name:
             require(on_refine.get("edge_linlog", 0) > 0, f"{name}: kernel "
                     "E launched in the refine phases")
@@ -1360,18 +1374,28 @@ def phase_portable_embeds(torch, g, res, dev, main_coords) -> dict:
 
 
 def portable_holds(torch, g, res, dev) -> dict:
-    """Kernels A and E against their plain versions at the shapes the
+    """Kernels A, B and E against their plain versions at the shapes the
     portable and linlog embeds give them: each level's intra-aggregate CSR
     (kernel A in unit mode on level 0 and exact mode above it under plain
-    FA, kernel E under linlog), level 0's segment sums (the cut-edge pull
-    over the sender CSR, the epilogue's members-by-aggregate sums) and the
-    base case's CSR under both params.  Returns each kernel's worst
-    (max_abs_err, max_err_over_scale) for the summary line."""
+    FA, kernel E under linlog), each level's within-aggregate repulsion
+    (kernel B over the layout's slot view, through ``aggregate_repulsion``,
+    against the float64 difference-form sum over the same member tables,
+    each element within RTOL of its sum of |terms|), level 0's segment
+    sums (the cut-edge pull over the sender CSR, the epilogue's
+    members-by-aggregate sums) and the base case's CSR under both params.
+    Kernel B is also held on a partition of ``B_SIZES``, which fills
+    every class from 8 to 4,096 (a last table 2,928 wide, as
+    lj-community's level 0 has).  Returns each kernel's worst (max_abs_err, max_err_over_scale)
+    for the summary line."""
     import dataclasses
 
+    import numpy as np
+
     import graph_embed_tpu_torch as gp
+    from graph_embed_tpu_torch import interop
     from graph_embed_tpu_torch.forceatlas import flat as PF
     from graph_embed_tpu_torch.forceatlas import multilevel as PML
+    from graph_embed_tpu_torch.ops import cuda
     from graph_embed_tpu_torch.ops import edge_spmm as ES
 
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -1404,6 +1428,21 @@ def portable_holds(torch, g, res, dev) -> dict:
         held("edge_linlog", got, want, scale, rows=csr.n_rows, nnz=csr.nnz,
              **fields)
 
+    def hold_b(members, x, deg_p1, params, **fields):
+        kw = dict(repel=params.repel, eps=params.epsilon)
+        before = cuda.LAUNCHES["bucket_repulsion"]
+        got = PML.aggregate_repulsion(x, members, deg_p1, **kw)
+        require(cuda.LAUNCHES["bucket_repulsion"] == before + 1,
+                f"aggregate_repulsion made one kernel B launch ({fields})")
+        tables = tuple(t.cpu() for t in members)
+        x64, w64 = x.cpu().double(), deg_p1.cpu().double()
+        want = PML.aggregate_repulsion(x64, tables, w64, exact=True, **kw)
+        scale = PML.aggregate_repulsion(x64, tables, w64, exact=True,
+                                        absolute=True, **kw)
+        held("bucket_repulsion", got.cpu().double(), want, scale,
+             rows=x.shape[0], widths=[int(t.shape[1]) for t in tables],
+             **fields)
+
     graphs = [g] + res.coarse_graphs
     for linlog in (False, True):
         params = gp.MultilevelFAParams(linlog=linlog)
@@ -1412,6 +1451,8 @@ def portable_holds(torch, g, res, dev) -> dict:
             lay = PML.prepare_multilevel(graphs[level].to(dev), part.to(dev),
                                          params)
             x = rand(graphs[level].n)
+            hold_b(lay.members, x, lay.deg_loc + 1.0, params, path=path,
+                   level=level, table="member tables")
             if linlog:
                 hold_e(lay.intra, x, params, path=path, level=level,
                        table="intra-aggregate")
@@ -1433,13 +1474,24 @@ def portable_holds(torch, g, res, dev) -> dict:
         else:
             hold_a(csr, x, path=path, level=len(res.levels),
                    table="base case")
+    rng = np.random.default_rng(5)
+    sizes = np.concatenate([rng.integers(lo, hi + 1, k)
+                            for lo, hi, k in B_SIZES])
+    v2a = rng.permutation(np.repeat(np.arange(sizes.size), sizes))
+    part = interop.partition(v2a.astype(np.int32), sizes.size)
+    members = PML.place_members(PML.build_member_buckets(part), part.n, dev)
+    w = torch.rand(part.n, generator=gen, device=dev) * 8 + 1
+    hold_b(members, rand(part.n), w, gp.MultilevelFAParams(),
+           path="size classes", aggregates=int(sizes.size),
+           largest=int(sizes.max()))
     return worst
 
 
 def portable_split(torch, g, res, dev) -> None:
     """Where one portable force evaluation of level 0 goes, by CUDA events
-    (median of 10): the gram repulsion of each size class alone and of
-    all, the attraction (kernel A), and the whole ml_forces."""
+    (median of 10): the within-aggregate repulsion (kernel B over the
+    member tables' slot view, built beforehand) of each size class alone
+    and of all, the attraction (kernel A), and the whole ml_forces."""
     import graph_embed_tpu_torch as gp
     from graph_embed_tpu_torch.forceatlas import multilevel as PML
     from graph_embed_tpu_torch.ops import edge_spmm as ES
@@ -1450,12 +1502,13 @@ def portable_split(torch, g, res, dev) -> None:
     x = torch.rand((g.n, 3), generator=gen, device=dev) * 2 - 1
     deg_p1 = lay.deg_loc + 1.0
 
-    def repulsion(tables):
-        return lambda: PML.aggregate_repulsion(x, tables, deg_p1,
+    def repulsion(slots):
+        return lambda: PML.aggregate_repulsion(x, slots, deg_p1,
                                                params.repel, params.epsilon)
 
     classes = [dict(S=int(t.shape[1]), aggregates=int(t.shape[0]),
-                    ms=cuda_ms(repulsion((t,)), reps=10))
+                    ms=cuda_ms(repulsion(PML.member_slots((t,), g.n, dev)),
+                               reps=10))
                for t in lay.members]
     emit(phase="portable refine split", level=0, n=g.n,
          intra_entries=lay.intra.nnz, attraction=lay.intra.kind,

@@ -4,12 +4,20 @@
 Counterpart of graph_embed_tpu/forceatlas/multilevel.py.  One iteration
 runs over every vertex of the level at once:
 
-* repulsion only within an aggregate (forceatlas.hpp:394-410): batched
-  [B, S, S] blocks over member tables in power-of-two size classes
-  (``build_member_buckets``), in the gram form unless the parameters ask
-  for ``"exact"`` per-pair differences; full-float32 matmuls (no TF32, see
-  forces.py), each member's force written back by index (every vertex is
-  in one aggregate, so no two writes meet);
+* repulsion only within an aggregate (forceatlas.hpp:394-410), over
+  member tables in power-of-two size classes (``build_member_buckets``).
+  On a CUDA tensor it is one launch of kernel B
+  (``csrc/bucket_repulsion.cu``) over the tables' slot view
+  (``MemberSlots``), members against members with no padded pair, for
+  every repulsion name: each pair in the difference form, d^2 from
+  x_i - x_j with an IEEE sqrt and divide, which is the reference's own
+  arithmetic.  The JAX package's gram identity is the TPU's way to put
+  this sum on its matrix unit, not a different result; the difference
+  form drops its cancellation.  On a CPU tensor it is batched [B, S, S]
+  blocks, in the gram form unless the parameters ask for ``"exact"``
+  per-pair differences, as the JAX package computes them; full-float32
+  matmuls (no TF32, see forces.py).  Each member's force is written back
+  by index (every vertex is in one aggregate, so no two writes meet);
 * intra-aggregate attraction (:415-450) over an intra-aggregate CSR built
   once per level on the host (entries with agg(s) == agg(r), s != r;
   weights folded with the local degrees): kernel A under plain FA,
@@ -35,6 +43,7 @@ import numpy as np
 import torch
 
 from ..graph.csr import Graph
+from ..ops import cuda
 from ..ops import edge_spmm as ES
 from ..ops import segment
 from ..partition.interpolation import Partition
@@ -108,6 +117,79 @@ def build_member_buckets(part: Partition, *,
     return tuple(buckets)
 
 
+@dataclasses.dataclass(frozen=True)
+class MemberSlots:
+    """Member tables (``build_member_buckets``; int64 on one device) with
+    kernel B's slot view of them, built once.  Each table, flattened and
+    laid back to back, is a bucket of kernel B's slot space: a row is one
+    aggregate, its members first and ghost slots after.  A table whose
+    width is no power of two (the last class: the largest aggregate
+    rounded up to 8) is padded to its power-of-two class, at least 8, in
+    the view only; ghost rows have no partner loop, so this costs memory
+    and no arithmetic.  One row of 8 ghosts closes the view: a vertex in no
+    table reads its first slot, which kernel B writes 0.  Iterating yields
+    the tables, so a caller that walks plain tables walks these too.
+
+    ``widths``: each table's width in the view; ``vertex``: [n_slots] the
+    vertex in each slot, n in a ghost slot; ``slot``: [n] each vertex's
+    slot; ``tasks``, ``aggs``: kernel B's warp tasks and the aggregates
+    its small-class tasks walk (``multilevel_tiled._task_table``)."""
+
+    tables: tuple
+    widths: tuple
+    vertex: torch.Tensor
+    slot: torch.Tensor
+    tasks: torch.Tensor
+    aggs: torch.Tensor
+
+    def __iter__(self):
+        return iter(self.tables)
+
+
+def member_slots(tables, n: int, device) -> MemberSlots:
+    """The slot view of member tables over ``n`` vertices (host arrays or
+    tensors, padded with n), each row listing its members first as
+    ``build_member_buckets`` does (``_task_table`` raises otherwise)."""
+    from .multilevel_tiled import Bucket, _task_table
+
+    host = [t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+            for t in tables]
+    views, buckets, base = [], [], 0
+    for t in [*host, np.full((1, 8), n)]:
+        m, S = t.shape
+        width = max(8, 1 << (max(S, 1) - 1).bit_length())
+        view = np.full((m, width), n, dtype=np.int64)
+        view[:, :S] = t
+        views.append(view.reshape(-1))
+        # no aggregate ids: the view knows only the tables' rows
+        buckets.append(Bucket(base=base, m_b=m, S=width, aggs=None,
+                              counts=None, sampled=False))
+        base += view.size
+    vertex = np.concatenate(views)
+    member = np.flatnonzero(vertex < n)
+    slot = np.full(n, buckets[-1].base, dtype=np.int64)
+    slot[vertex[member]] = member
+    tasks, aggs = _task_table(buckets, vertex < n)
+    return MemberSlots(
+        tables=tuple(torch.as_tensor(t).to(device).long() for t in host),
+        widths=tuple(b.S for b in buckets[:-1]),
+        vertex=torch.from_numpy(vertex).to(device),
+        slot=torch.from_numpy(slot).to(device),
+        tasks=torch.from_numpy(tasks).to(device),
+        aggs=torch.from_numpy(aggs).to(device))
+
+
+def place_members(tables, n: int, device) -> tuple | MemberSlots:
+    """Member tables over ``n`` vertices on ``device``: with kernel B's
+    slot view on a CUDA device (``member_slots``), the plain int64 tables
+    elsewhere, which the CPU path walks."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return member_slots(tables, n, device)
+    return tuple(torch.from_numpy(np.asarray(t, np.int64)).to(device)
+                 for t in tables)
+
+
 def check_full_float32() -> None:
     """The gram form needs full-float32 products: TF32 moves near pairs to
     the eps clamp (forces.py:58-62)."""
@@ -166,18 +248,34 @@ def aggregate_repulsion(coords, members, deg_p1, repel: float, eps: float,
     """[n, d] within-aggregate repulsion (forceatlas.hpp:394-410):
     repel * w_i * sum_{j != i in agg(i)} w_j (x_i - x_j) / max(d_ij, eps)^3
     with w = ``deg_p1``.  ``members``: one [m, S] table or a sequence of
-    them (``build_member_buckets``), host arrays or tensors; each table
-    runs in chunks of at most ``max_pairs`` member pairs.
+    them (``build_member_buckets``), host arrays or tensors, or their
+    ``MemberSlots``.
 
-    ``absolute`` gives each element's rounding scale instead: the sum of
-    its terms' magnitudes, and for the gram form each pair's term also
-    scaled by (|x_i|^2 + |x_j|^2) / d_ij^2, the cancellation of the gram
-    identity.  Two float32 evaluations in another order stay within a
-    small multiple of 2^-24 of it."""
+    On a CUDA tensor: one launch of kernel B over the slot view, in the
+    difference form whatever ``exact`` says; the view is built here from
+    plain tables, so the sum is always over the tables passed.  ``x`` and
+    ``deg_p1`` are gathered into slot order (ghosts weigh 0) and the
+    result gathered back by each vertex's slot; every vertex has one, so
+    both are permutations.  No fallback: what kernel B does not take
+    raises.
+
+    On a CPU tensor: each table runs in chunks of at most ``max_pairs``
+    member pairs.  ``absolute`` gives each element's rounding scale
+    instead: the sum of its terms' magnitudes, and for the gram form each
+    pair's term also scaled by (|x_i|^2 + |x_j|^2) / d_ij^2, the
+    cancellation of the gram identity.  Two float32 evaluations in another
+    order stay within a small multiple of 2^-24 of it."""
     check_full_float32()
     n, d = coords.shape
     if isinstance(members, (np.ndarray, torch.Tensor)):
         members = (members,)
+    if coords.is_cuda:
+        if absolute:
+            raise ValueError("the rounding scales are the plain path's: "
+                             "pass CPU tensors")
+        if not isinstance(members, MemberSlots):
+            members = member_slots(members, n, coords.device)
+        return _slot_repulsion(coords, members, deg_p1, repel, eps)
     out = coords.new_zeros((n + 1, d))
     for table in members:
         table = torch.as_tensor(table, device=coords.device).long()
@@ -190,6 +288,21 @@ def aggregate_repulsion(coords, members, deg_p1, repel: float, eps: float,
             # padding lands in row n, which is dropped
             out[mem.reshape(-1)] = f.reshape(-1, d)
     return out[:n]
+
+
+def _slot_repulsion(coords, slots: MemberSlots, deg_p1, repel: float,
+                    eps: float) -> torch.Tensor:
+    """Kernel B over ``slots``: gather into slot order (a ghost slot takes
+    weight 0, and kernel B reads no ghost's coordinates), one launch,
+    gather back by each vertex's slot."""
+    from .multilevel_tiled import slot_repulsion_cuda
+
+    n = coords.shape[0]
+    src = torch.clamp(slots.vertex, max=n - 1)
+    x = coords.index_select(0, src)
+    w = torch.where(slots.vertex < n, deg_p1.index_select(0, src), 0.0)
+    f = slot_repulsion_cuda(x, w, slots.tasks, slots.aggs, repel, eps)
+    return f.index_select(0, slots.slot)
 
 
 def sender_csr(g: Graph) -> ES.EdgeCSR:
@@ -262,15 +375,17 @@ def _intra_csr(g: Graph, part: Partition, deg_loc: torch.Tensor,
 @dataclasses.dataclass(frozen=True)
 class MultilevelLayout:
     """One level's tables for the portable refinement, built once on the
-    host and placed on the graph's device: the member tables by size class,
-    the intra-aggregate CSR and its row sums, the local degrees, the
-    sender CSR of the cut-edge pull and the members-by-aggregate CSR of
-    the epilogue; and the repulsion's work per iteration: ``pairs``, the
-    ordered member pairs sum_a s_a (s_a - 1), ``padded_pairs``, what the
-    tables' [B, S, S] blocks compute, and ``largest``, the largest
+    host and placed on the graph's device: the member tables by size class
+    (``place_members``: with kernel B's slot view on a card), the
+    intra-aggregate CSR
+    and its row sums, the local degrees, the sender CSR of the cut-edge
+    pull and the members-by-aggregate CSR of the epilogue; and the
+    repulsion's work per iteration: ``pairs``, the ordered member pairs
+    sum_a s_a (s_a - 1), ``padded_pairs``, what the tables' [B, S, S]
+    blocks of the CPU path compute, and ``largest``, the largest
     aggregate."""
 
-    members: tuple
+    members: tuple | MemberSlots
     intra: ES.EdgeCSR
     intra_rowsum: torch.Tensor
     deg_loc: torch.Tensor
@@ -287,9 +402,9 @@ def prepare_multilevel(g: Graph, part: Partition,
                        params: MultilevelFAParams) -> MultilevelLayout:
     """The portable refinement's tables of one level (host prep; the local
     degrees are summed on the device by kernel A).  Sub-spans
-    ``ml.members`` (the member tables built and uploaded) and ``ml.intra``
-    (the local degrees and the intra-aggregate CSR, with the counter
-    ``ml_intra_entries``)."""
+    ``ml.members`` (the member tables built and uploaded, on a card with
+    their slot view) and ``ml.intra`` (the local degrees and the intra-aggregate
+    CSR, with the counter ``ml_intra_entries``)."""
     part = part.to(g.device)
     with timing.span("ml.intra"):
         deg_loc = local_degrees(g, part, params.use_weights)
@@ -297,8 +412,7 @@ def prepare_multilevel(g: Graph, part: Partition,
         timing.count("ml_intra_entries", int(intra.col.numel()))
     with timing.span("ml.members"):
         tables = build_member_buckets(part)
-        members = tuple(torch.from_numpy(t.astype(np.int64)).to(g.device)
-                        for t in tables)
+        members = place_members(tables, part.n, g.device)
     sizes = np.concatenate([(t < part.n).sum(axis=1) for t in tables])
     return MultilevelLayout(members=members, intra=intra,
                             intra_rowsum=rowsum, deg_loc=deg_loc,
@@ -316,9 +430,10 @@ def ml_forces(coords, layout: MultilevelLayout, pull_vec,
               params: MultilevelFAParams, *,
               absolute: bool = False) -> torch.Tensor:
     """Total per-vertex force of one refinement iteration
-    (forceatlas.hpp:390-475).  Repulsion takes per-pair differences for
-    ``repulsion="exact"`` and the gram form for every other name, as the
-    JAX package does (multilevel.py:211).
+    (forceatlas.hpp:390-475).  Repulsion on the card is kernel B's
+    difference form for every name; on the CPU it takes per-pair
+    differences for ``repulsion="exact"`` and the gram form for every other
+    name, as the JAX package does (multilevel.py:211).
 
     ``absolute`` (CPU tensors, plain versions) gives each element's
     rounding scale instead: the sum of the magnitudes of its repulsion
@@ -408,8 +523,11 @@ def force_atlas_multilevel(g: Graph, part: Partition, coords_A, r_A,
     (``prepare_multilevel``, on ``device``) is built here when not
     given.  The sub-span ``ml.loop`` holds the iterations and their card
     work (it ends by waiting on the current stream) and counts the layout's
-    ``ml_pairs``, ``ml_padded_pairs`` and ``ml_largest_aggregate``; each
-    iteration's repulsion is a sub-span ``ml.repulsion`` inside it."""
+    ``ml_pairs``, ``ml_padded_pairs`` (the CPU path's work: on the card no
+    padded pair is computed) and ``ml_largest_aggregate``, and on the card
+    ``ml_repulsion_launches``, the kernel B launches of its iterations (one
+    each); each iteration's repulsion is a sub-span ``ml.repulsion`` inside
+    it."""
     params = params or MultilevelFAParams()
     g = g.to(resolve(device))
     dev, dtype = g.device, g.dtype
@@ -430,7 +548,10 @@ def force_atlas_multilevel(g: Graph, part: Partition, coords_A, r_A,
         timing.count("ml_pairs", layout.pairs)
         timing.count("ml_padded_pairs", layout.padded_pairs)
         timing.count("ml_largest_aggregate", layout.largest)
+        launched = cuda.LAUNCHES["bucket_repulsion"]
         x = ml_loop(x, layout, pull_vec, params, iterations)
         if dev.type == "cuda":
+            timing.count("ml_repulsion_launches",
+                         cuda.LAUNCHES["bucket_repulsion"] - launched)
             torch.cuda.current_stream(dev).synchronize()
     return place_into_parents(x, layout, coords_A, r_A, params.epsilon)

@@ -408,38 +408,53 @@ def exact_repulsion_plain(x, layout: RefineLayout, repel: float,
     return out
 
 
-def exact_repulsion_cuda(x, layout: RefineLayout, repel: float,
-                         eps: float) -> torch.Tensor:
-    """Kernel B: one launch over every exact bucket, the warp tasks of
-    ``layout.exact_meta`` (``_task_table``): members against members,
-    ghost slots written 0.  Slots of sampled buckets are left unwritten
-    (the caller fills them)."""
-    w, meta, aggs = layout.w_rep, layout.exact_meta, layout.exact_aggs
-    if not x.is_cuda or any(t.device != x.device for t in (w, meta, aggs)):
+def slot_repulsion_cuda(x, w, tasks, aggs, repel: float,
+                        eps: float) -> torch.Tensor:
+    """Kernel B: one launch over the warp tasks ``tasks`` (``_task_table``)
+    of slot coordinates ``x`` [n_slots, d] with weights ``w`` [n_slots]
+    (0 on ghosts): members against members, ghost slots written 0.  Slots
+    no task names are left unwritten."""
+    if not x.is_cuda or any(t.device != x.device for t in (w, tasks, aggs)):
         raise ValueError("kernel B needs x and the layout on one CUDA "
                          "device")
     if (x.dtype != torch.float32 or not x.is_contiguous()
-            or x.dim() != 2 or x.shape[0] != layout.n_slots
-            or not 1 <= x.shape[1] <= 4):
+            or x.dim() != 2 or not 1 <= x.shape[1] <= 4):
+        raise ValueError(f"kernel B takes contiguous float32 [n_slots, "
+                         f"d<=4] slot coordinates, got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    if (w.dtype != torch.float32 or not w.is_contiguous()
+            or tuple(w.shape) != (x.shape[0],)):
         raise ValueError(f"kernel B takes contiguous float32 "
-                         f"[{layout.n_slots}, d<=4] slot coordinates, got "
-                         f"{x.dtype} {tuple(x.shape)}")
-    if (meta.dtype != torch.int32 or not meta.is_contiguous()
-            or meta.data_ptr() % 16 != 0 or aggs.dtype != torch.int32
+                         f"[{x.shape[0]}] slot weights, got {w.dtype} "
+                         f"{tuple(w.shape)}")
+    if (tasks.dtype != torch.int32 or not tasks.is_contiguous()
+            or tasks.data_ptr() % 16 != 0 or aggs.dtype != torch.int32
             or not aggs.is_contiguous() or aggs.data_ptr() % 8 != 0):
         raise ValueError("kernel B's task table and aggregates must be "
                          "aligned int32")
     out = torch.empty_like(x)
-    if meta.shape[0] == 0:
+    if tasks.shape[0] == 0:
         return out
     with torch.cuda.device(x.device):
         rc = cuda.library().ge_bucket_repulsion(
-            meta.shape[0], x.shape[1], meta.data_ptr(), aggs.data_ptr(),
+            tasks.shape[0], x.shape[1], tasks.data_ptr(), aggs.data_ptr(),
             aggs.shape[0], x.data_ptr(), w.data_ptr(), out.data_ptr(),
             float(repel), float(eps), cuda.stream_of(x))
     cuda.check(rc, "bucket_repulsion")
     cuda.LAUNCHES["bucket_repulsion"] += 1
     return out
+
+
+def exact_repulsion_cuda(x, layout: RefineLayout, repel: float,
+                         eps: float) -> torch.Tensor:
+    """Kernel B over every exact bucket of ``layout``
+    (``slot_repulsion_cuda`` on ``layout.exact_meta``).  Slots of sampled
+    buckets are left unwritten (the caller fills them)."""
+    if x.shape[0] != layout.n_slots:
+        raise ValueError(f"kernel B takes the layout's {layout.n_slots} "
+                         f"slot coordinates, got {x.shape[0]}")
+    return slot_repulsion_cuda(x, layout.w_rep, layout.exact_meta,
+                               layout.exact_aggs, repel, eps)
 
 
 def bucket_repulsion_sampled(x3, w3, counts, u, repel: float, eps: float):
