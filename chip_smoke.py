@@ -487,6 +487,7 @@ def phase_kernels(torch, g, res, dev) -> dict:
     import dataclasses
 
     from graph_embed_tpu_torch.forceatlas import multilevel_tiled as MT
+    from graph_embed_tpu_torch.ops import bucket_repulsion as BR
     from graph_embed_tpu_torch.ops import edge_spmm as ES
     from graph_embed_tpu_torch.utils.params import MultilevelFAParams
 
@@ -523,14 +524,15 @@ def phase_kernels(torch, g, res, dev) -> dict:
             out["edge_spmm[bf16x] slots"] = check_bf16x(
                 torch, csr, x, level=level)
 
-        got = MT.exact_repulsion_cuda(x, layout, params.repel,
-                                      params.epsilon)
-        want = MT.exact_repulsion_plain(x, layout, params.repel,
-                                        params.epsilon)
-        scale = MT.exact_repulsion_plain(x, layout, params.repel,
-                                         params.epsilon, absolute=True)
+        space, w = layout.space, layout.w_rep
+        got = BR.slot_repulsion_cuda(x, w, space, params.repel,
+                                     params.epsilon)
+        want = BR.slot_repulsion_plain(x, w, space, params.repel,
+                                       params.epsilon)
+        scale = BR.slot_repulsion_plain(x, w, space, params.repel,
+                                        params.epsilon, absolute=True)
         torch.cuda.synchronize()
-        for b in layout.buckets:
+        for b in space.buckets:
             if b.sampled:
                 continue
             sl = b.slots
@@ -543,21 +545,21 @@ def phase_kernels(torch, g, res, dev) -> dict:
             require(ratio <= RTOL, f"bucket_repulsion S={b.S} agrees with "
                     "its plain version")
             b_err.append((err, ratio))
-        ms, host_ms = device_ms(lambda: MT.exact_repulsion_cuda(
-            x, layout, params.repel, params.epsilon))
-        plain_ms = cuda_ms(lambda: MT.exact_repulsion_plain(
-            x, layout, params.repel, params.epsilon), reps=5, warmup=1)
+        ms, host_ms = device_ms(lambda: BR.slot_repulsion_cuda(
+            x, w, space, params.repel, params.epsilon))
+        plain_ms = cuda_ms(lambda: BR.slot_repulsion_plain(
+            x, w, space, params.repel, params.epsilon), reps=5, warmup=1)
         # member pairs of the exact buckets; the members' x and weights
         # read once, the task table once, every exact slot's force written
         # once
-        exact = [b_class_counts(b) for b in layout.buckets if not b.sampled]
+        exact = [b_class_counts(b) for b in space.buckets if not b.sampled]
         pairs = sum(c["member_pairs"] for c in exact)
         b_bound = bound(sum(16 * c["member_slots"] + 12 * c["slots"]
                             for c in exact)
-                        + 16 * layout.exact_meta.shape[0],
+                        + 16 * space.tasks.shape[0],
                         pairs * pair_ops(3))
         emit(phase="kernels", kernel="bucket_repulsion", level=level,
-             slots=layout.n_slots, table_rows=int(layout.exact_meta.shape[0]),
+             slots=layout.n_slots, table_rows=int(space.tasks.shape[0]),
              ms=ms, host_ms=host_ms, plain_ms=plain_ms, **b_bound)
         b_classes(torch, layout, x, params, level)
         if level == 0:
@@ -582,32 +584,32 @@ def b_class_counts(b) -> dict:
                 member_pairs=int((c * (c - 1)).sum()))
 
 
-def class_table(layout, S: int):
-    """The layout with kernel B's table restricted to one size class
+def class_table(space, S: int):
+    """The slot space with kernel B's table restricted to one size class
     (column 1 of every table row holds its class, negated in the rows that
     write zeros)."""
     import dataclasses
 
-    meta = layout.exact_meta
+    tasks = space.tasks
     return dataclasses.replace(
-        layout, exact_meta=meta[meta[:, 1].abs() == S].contiguous())
+        space, tasks=tasks[tasks[:, 1].abs() == S].contiguous())
 
 
 def b_classes(torch, layout, x, params, level: int) -> list:
     """Kernel B on one size class at a time (``class_table``), timed on the
     card alone, beside the class's counts (``b_class_counts``).  One JSON
     line per class; returns them."""
-    from graph_embed_tpu_torch.forceatlas import multilevel_tiled as MT
+    from graph_embed_tpu_torch.ops import bucket_repulsion as BR
 
     lines = []
-    for b in layout.buckets:
+    for b in layout.space.buckets:
         if b.sampled:
             continue
-        one = class_table(layout, b.S)
-        ms, host_ms = device_ms(lambda: MT.exact_repulsion_cuda(
-            x, one, params.repel, params.epsilon))
+        one = class_table(layout.space, b.S)
+        ms, host_ms = device_ms(lambda: BR.slot_repulsion_cuda(
+            x, layout.w_rep, one, params.repel, params.epsilon))
         line = dict(phase="kernels", kernel="bucket_repulsion class",
-                    level=level, table_rows=int(one.exact_meta.shape[0]),
+                    level=level, table_rows=int(one.tasks.shape[0]),
                     **b_class_counts(b), ms=ms, host_ms=host_ms)
         emit(**line)
         lines.append(line)
@@ -1428,13 +1430,13 @@ def portable_holds(torch, g, res, dev) -> dict:
         held("edge_linlog", got, want, scale, rows=csr.n_rows, nnz=csr.nnz,
              **fields)
 
-    def hold_b(members, x, deg_p1, params, **fields):
+    def hold_b(members, part, x, deg_p1, params, **fields):
         kw = dict(repel=params.repel, eps=params.epsilon)
         before = cuda.LAUNCHES["bucket_repulsion"]
         got = PML.aggregate_repulsion(x, members, deg_p1, **kw)
         require(cuda.LAUNCHES["bucket_repulsion"] == before + 1,
                 f"aggregate_repulsion made one kernel B launch ({fields})")
-        tables = tuple(t.cpu() for t in members)
+        tables = PML.build_member_buckets(part.to("cpu"))
         x64, w64 = x.cpu().double(), deg_p1.cpu().double()
         want = PML.aggregate_repulsion(x64, tables, w64, exact=True, **kw)
         scale = PML.aggregate_repulsion(x64, tables, w64, exact=True,
@@ -1451,8 +1453,8 @@ def portable_holds(torch, g, res, dev) -> dict:
             lay = PML.prepare_multilevel(graphs[level].to(dev), part.to(dev),
                                          params)
             x = rand(graphs[level].n)
-            hold_b(lay.members, x, lay.deg_loc + 1.0, params, path=path,
-                   level=level, table="member tables")
+            hold_b(lay.members, part, x, lay.deg_loc + 1.0, params,
+                   path=path, level=level, table="slot space")
             if linlog:
                 hold_e(lay.intra, x, params, path=path, level=level,
                        table="intra-aggregate")
@@ -1479,9 +1481,9 @@ def portable_holds(torch, g, res, dev) -> dict:
                             for lo, hi, k in B_SIZES])
     v2a = rng.permutation(np.repeat(np.arange(sizes.size), sizes))
     part = interop.partition(v2a.astype(np.int32), sizes.size)
-    members = PML.place_members(PML.build_member_buckets(part), part.n, dev)
+    members = PML.repulsion_members(part, dev)
     w = torch.rand(part.n, generator=gen, device=dev) * 8 + 1
-    hold_b(members, rand(part.n), w, gp.MultilevelFAParams(),
+    hold_b(members, part, rand(part.n), w, gp.MultilevelFAParams(),
            path="size classes", aggregates=int(sizes.size),
            largest=int(sizes.max()))
     return worst
@@ -1490,8 +1492,9 @@ def portable_holds(torch, g, res, dev) -> dict:
 def portable_split(torch, g, res, dev) -> None:
     """Where one portable force evaluation of level 0 goes, by CUDA events
     (median of 10): the within-aggregate repulsion (kernel B over the
-    member tables' slot view, built beforehand) of each size class alone
-    and of all, the attraction (kernel A), and the whole ml_forces."""
+    level's slot space, built beforehand) of each size class alone
+    (``class_table``) and of all, the attraction (kernel A), and the whole
+    ml_forces."""
     import graph_embed_tpu_torch as gp
     from graph_embed_tpu_torch.forceatlas import multilevel as PML
     from graph_embed_tpu_torch.ops import edge_spmm as ES
@@ -1506,10 +1509,10 @@ def portable_split(torch, g, res, dev) -> None:
         return lambda: PML.aggregate_repulsion(x, slots, deg_p1,
                                                params.repel, params.epsilon)
 
-    classes = [dict(S=int(t.shape[1]), aggregates=int(t.shape[0]),
-                    ms=cuda_ms(repulsion(PML.member_slots((t,), g.n, dev)),
+    classes = [dict(S=b.S, aggregates=b.m_b,
+                    ms=cuda_ms(repulsion(class_table(lay.members, b.S)),
                                reps=10))
-               for t in lay.members]
+               for b in lay.members.buckets]
     emit(phase="portable refine split", level=0, n=g.n,
          intra_entries=lay.intra.nnz, attraction=lay.intra.kind,
          classes=classes, repulsion_ms=cuda_ms(repulsion(lay.members),
@@ -2966,6 +2969,7 @@ def lj_scale_holds(torch, dev) -> dict:
     import dataclasses
 
     from graph_embed_tpu_torch.forceatlas import multilevel_tiled as MT
+    from graph_embed_tpu_torch.ops import bucket_repulsion as BR
     from graph_embed_tpu_torch.ops import edge_spmm as ES
     from graph_embed_tpu_torch.utils.params import MultilevelFAParams
 
@@ -3004,14 +3008,15 @@ def lj_scale_holds(torch, dev) -> dict:
                              device=dev) * 2 - 1)
             hold_a(layout.sender_csr, xs, level=level,
                    table="sender (cut-edge pull)")
-        got = MT.exact_repulsion_cuda(x, layout, params.repel,
-                                      params.epsilon)
-        want = MT.exact_repulsion_plain(x, layout, params.repel,
-                                        params.epsilon)
-        scale = MT.exact_repulsion_plain(x, layout, params.repel,
-                                         params.epsilon, absolute=True)
+        space, w = layout.space, layout.w_rep
+        got = BR.slot_repulsion_cuda(x, w, space, params.repel,
+                                     params.epsilon)
+        want = BR.slot_repulsion_plain(x, w, space, params.repel,
+                                       params.epsilon)
+        scale = BR.slot_repulsion_plain(x, w, space, params.repel,
+                                        params.epsilon, absolute=True)
         torch.cuda.synchronize()
-        for b in layout.buckets:
+        for b in space.buckets:
             if not b.sampled:
                 sl = b.slots
                 held("bucket_repulsion", hold(

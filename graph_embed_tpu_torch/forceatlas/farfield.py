@@ -11,7 +11,7 @@ computes repulsion all-pairs (forceatlas.hpp:151) or within aggregates
 with mass-weighted centroids c_g and masses M_g = sum (deg_j + 1).  The
 far field is an [n, m] gram-form interaction in full-float32 matmuls,
 row-blocked to bound memory; the near field is the portable refinement's
-``aggregate_repulsion`` (kernel B on the card, over the slot view that
+``aggregate_repulsion`` (kernel B on the card, over the slot space that
 ``Groups.build`` makes once); the per-group sums run through
 ``ops.segment``.
 """
@@ -22,28 +22,29 @@ import dataclasses
 
 import torch
 
+from ..ops import bucket_repulsion as BR
 from ..ops import edge_spmm as ES
 from ..ops import segment
 from ..partition.interpolation import Partition
-from .multilevel import (PAIR_BUDGET, MemberSlots, aggregate_repulsion,
-                         build_member_buckets, check_full_float32,
-                         place_members)
+from .multilevel import (PAIR_BUDGET, aggregate_repulsion,
+                         check_full_float32, repulsion_members)
 
 
 @dataclasses.dataclass(frozen=True)
 class Groups:
-    """A grouping on one device with its tables: the assignment, the
-    member tables by size class (on a card with kernel B's slot view), and
-    the members-by-group segment CSR."""
+    """A grouping on one device with its tables: the assignment, what the
+    near field walks (``repulsion_members``: kernel B's slot space on a
+    card, the member tables elsewhere), and the members-by-group segment
+    CSR."""
 
     part: Partition
-    members: tuple | MemberSlots
+    members: tuple | BR.SlotSpace
     csr: ES.EdgeCSR
 
     @classmethod
     def build(cls, part: Partition, device) -> "Groups":
         part = part.to(device)
-        members = place_members(build_member_buckets(part), part.n, device)
+        members = repulsion_members(part, device)
         return cls(part=part, members=members, csr=part.segment_csr())
 
 

@@ -4,20 +4,20 @@
 Counterpart of graph_embed_tpu/forceatlas/multilevel.py.  One iteration
 runs over every vertex of the level at once:
 
-* repulsion only within an aggregate (forceatlas.hpp:394-410), over
-  member tables in power-of-two size classes (``build_member_buckets``).
-  On a CUDA tensor it is one launch of kernel B
-  (``csrc/bucket_repulsion.cu``) over the tables' slot view
-  (``MemberSlots``), members against members with no padded pair, for
-  every repulsion name: each pair in the difference form, d^2 from
-  x_i - x_j with an IEEE sqrt and divide, which is the reference's own
-  arithmetic.  The JAX package's gram identity is the TPU's way to put
-  this sum on its matrix unit, not a different result; the difference
-  form drops its cancellation.  On a CPU tensor it is batched [B, S, S]
-  blocks, in the gram form unless the parameters ask for ``"exact"``
-  per-pair differences, as the JAX package computes them; full-float32
-  matmuls (no TF32, see forces.py).  Each member's force is written back
-  by index (every vertex is in one aggregate, so no two writes meet);
+* repulsion only within an aggregate (forceatlas.hpp:394-410).  On a
+  CUDA tensor it is one launch of kernel B (``ops.bucket_repulsion``)
+  over the level's slot space, members against members with no padded
+  pair, for every repulsion name: each pair in the difference form, d^2
+  from x_i - x_j with an IEEE sqrt and divide, which is the reference's
+  own arithmetic.  The JAX package's gram identity is the TPU's way to
+  put this sum on its matrix unit, not a different result; the
+  difference form drops its cancellation.  On a CPU tensor it is batched
+  [B, S, S] blocks over member tables in power-of-two size classes
+  (``build_member_buckets``), in the gram form unless the parameters ask
+  for ``"exact"`` per-pair differences, as the JAX package computes them;
+  full-float32 matmuls (no TF32, see forces.py).  Each member's force is
+  written back by index (every vertex is in one aggregate, so no two
+  writes meet);
 * intra-aggregate attraction (:415-450) over an intra-aggregate CSR built
   once per level on the host (entries with agg(s) == agg(r), s != r;
   weights folded with the local degrees): kernel A under plain FA,
@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from ..graph.csr import Graph
+from ..ops import bucket_repulsion as BR
 from ..ops import cuda
 from ..ops import edge_spmm as ES
 from ..ops import segment
@@ -117,77 +118,36 @@ def build_member_buckets(part: Partition, *,
     return tuple(buckets)
 
 
-@dataclasses.dataclass(frozen=True)
-class MemberSlots:
-    """Member tables (``build_member_buckets``; int64 on one device) with
-    kernel B's slot view of them, built once.  Each table, flattened and
-    laid back to back, is a bucket of kernel B's slot space: a row is one
-    aggregate, its members first and ghost slots after.  A table whose
-    width is no power of two (the last class: the largest aggregate
-    rounded up to 8) is padded to its power-of-two class, at least 8, in
-    the view only; ghost rows have no partner loop, so this costs memory
-    and no arithmetic.  One row of 8 ghosts closes the view: a vertex in no
-    table reads its first slot, which kernel B writes 0.  Iterating yields
-    the tables, so a caller that walks plain tables walks these too.
-
-    ``widths``: each table's width in the view; ``vertex``: [n_slots] the
-    vertex in each slot, n in a ghost slot; ``slot``: [n] each vertex's
-    slot; ``tasks``, ``aggs``: kernel B's warp tasks and the aggregates
-    its small-class tasks walk (``multilevel_tiled._task_table``)."""
-
-    tables: tuple
-    widths: tuple
-    vertex: torch.Tensor
-    slot: torch.Tensor
-    tasks: torch.Tensor
-    aggs: torch.Tensor
-
-    def __iter__(self):
-        return iter(self.tables)
-
-
-def member_slots(tables, n: int, device) -> MemberSlots:
-    """The slot view of member tables over ``n`` vertices (host arrays or
-    tensors, padded with n), each row listing its members first as
-    ``build_member_buckets`` does (``_task_table`` raises otherwise)."""
-    from .multilevel_tiled import Bucket, _task_table
-
-    host = [t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
-            for t in tables]
-    views, buckets, base = [], [], 0
-    for t in [*host, np.full((1, 8), n)]:
-        m, S = t.shape
-        width = max(8, 1 << (max(S, 1) - 1).bit_length())
-        view = np.full((m, width), n, dtype=np.int64)
-        view[:, :S] = t
-        views.append(view.reshape(-1))
-        # no aggregate ids: the view knows only the tables' rows
-        buckets.append(Bucket(base=base, m_b=m, S=width, aggs=None,
-                              counts=None, sampled=False))
-        base += view.size
-    vertex = np.concatenate(views)
-    member = np.flatnonzero(vertex < n)
-    slot = np.full(n, buckets[-1].base, dtype=np.int64)
-    slot[vertex[member]] = member
-    tasks, aggs = _task_table(buckets, vertex < n)
-    return MemberSlots(
-        tables=tuple(torch.as_tensor(t).to(device).long() for t in host),
-        widths=tuple(b.S for b in buckets[:-1]),
-        vertex=torch.from_numpy(vertex).to(device),
-        slot=torch.from_numpy(slot).to(device),
-        tasks=torch.from_numpy(tasks).to(device),
-        aggs=torch.from_numpy(aggs).to(device))
-
-
-def place_members(tables, n: int, device) -> tuple | MemberSlots:
-    """Member tables over ``n`` vertices on ``device``: with kernel B's
-    slot view on a CUDA device (``member_slots``), the plain int64 tables
-    elsewhere, which the CPU path walks."""
+def repulsion_members(part: Partition, device) -> tuple | BR.SlotSpace:
+    """What ``aggregate_repulsion`` walks for ``part`` on ``device``: kernel
+    B's slot space on a card (no member tables), the int64 member tables
+    (``build_member_buckets``) elsewhere."""
     device = torch.device(device)
     if device.type == "cuda":
-        return member_slots(tables, n, device)
-    return tuple(torch.from_numpy(np.asarray(t, np.int64)).to(device)
-                 for t in tables)
+        return BR.slot_space(part.vertex_to_agg_numpy(),
+                             part.num_aggs).to(device)
+    return tuple(torch.from_numpy(t.astype(np.int64)).to(device)
+                 for t in build_member_buckets(part))
+
+
+def _table_space(tables, n: int) -> BR.SlotSpace:
+    """Kernel B's slot space of member tables over ``n`` vertices (host
+    arrays or tensors, padded with n): each row an aggregate, which must
+    list its members first, and each vertex in no row an aggregate of its
+    own, so its force is 0."""
+    v2a = np.full(n, -1, dtype=np.int64)
+    m = 0
+    for t in tables:
+        t = torch.as_tensor(t).cpu().numpy()
+        member = t < n
+        if not np.array_equal(member, np.arange(t.shape[1])
+                              < member.sum(axis=1)[:, None]):
+            raise ValueError("kernel B needs each aggregate's members first")
+        v2a[t[member]] = m + np.nonzero(member)[0]
+        m += t.shape[0]
+    alone = np.flatnonzero(v2a < 0)
+    v2a[alone] = m + np.arange(alone.size)
+    return BR.slot_space(v2a, m + alone.size)
 
 
 def check_full_float32() -> None:
@@ -248,34 +208,33 @@ def aggregate_repulsion(coords, members, deg_p1, repel: float, eps: float,
     """[n, d] within-aggregate repulsion (forceatlas.hpp:394-410):
     repel * w_i * sum_{j != i in agg(i)} w_j (x_i - x_j) / max(d_ij, eps)^3
     with w = ``deg_p1``.  ``members``: one [m, S] table or a sequence of
-    them (``build_member_buckets``), host arrays or tensors, or their
-    ``MemberSlots``.
+    them (``build_member_buckets``), host arrays or tensors, or kernel B's
+    slot space (``repulsion_members`` on a card).
 
-    On a CUDA tensor: one launch of kernel B over the slot view, in the
-    difference form whatever ``exact`` says; the view is built here from
-    plain tables, so the sum is always over the tables passed.  ``x`` and
-    ``deg_p1`` are gathered into slot order (ghosts weigh 0) and the
-    result gathered back by each vertex's slot; every vertex has one, so
-    both are permutations.  No fallback: what kernel B does not take
-    raises.
+    On a CUDA tensor, or given a slot space: kernel B
+    (``BR.vertex_repulsion``; its plain version on a CPU tensor), in the
+    difference form whatever ``exact`` says.  Plain tables become a slot
+    space here, each row an aggregate (its members first) and each vertex
+    in no row one of its own, so the sum is always over the tables
+    passed.  No fallback: what kernel B does not take raises.
 
-    On a CPU tensor: each table runs in chunks of at most ``max_pairs``
-    member pairs.  ``absolute`` gives each element's rounding scale
-    instead: the sum of its terms' magnitudes, and for the gram form each
-    pair's term also scaled by (|x_i|^2 + |x_j|^2) / d_ij^2, the
+    On a CPU tensor with tables: each table runs in chunks of at most
+    ``max_pairs`` member pairs.  ``absolute`` gives each element's rounding
+    scale instead: the sum of its terms' magnitudes, and for the gram form
+    each pair's term also scaled by (|x_i|^2 + |x_j|^2) / d_ij^2, the
     cancellation of the gram identity.  Two float32 evaluations in another
     order stay within a small multiple of 2^-24 of it."""
     check_full_float32()
     n, d = coords.shape
     if isinstance(members, (np.ndarray, torch.Tensor)):
         members = (members,)
-    if coords.is_cuda:
+    if coords.is_cuda or isinstance(members, BR.SlotSpace):
         if absolute:
-            raise ValueError("the rounding scales are the plain path's: "
-                             "pass CPU tensors")
-        if not isinstance(members, MemberSlots):
-            members = member_slots(members, n, coords.device)
-        return _slot_repulsion(coords, members, deg_p1, repel, eps)
+            raise ValueError("the rounding scales are the member tables' "
+                             "plain path's: pass CPU tensors and tables")
+        if not isinstance(members, BR.SlotSpace):
+            members = _table_space(members, n).to(coords.device)
+        return BR.vertex_repulsion(coords, deg_p1, members, repel, eps)
     out = coords.new_zeros((n + 1, d))
     for table in members:
         table = torch.as_tensor(table, device=coords.device).long()
@@ -288,21 +247,6 @@ def aggregate_repulsion(coords, members, deg_p1, repel: float, eps: float,
             # padding lands in row n, which is dropped
             out[mem.reshape(-1)] = f.reshape(-1, d)
     return out[:n]
-
-
-def _slot_repulsion(coords, slots: MemberSlots, deg_p1, repel: float,
-                    eps: float) -> torch.Tensor:
-    """Kernel B over ``slots``: gather into slot order (a ghost slot takes
-    weight 0, and kernel B reads no ghost's coordinates), one launch,
-    gather back by each vertex's slot."""
-    from .multilevel_tiled import slot_repulsion_cuda
-
-    n = coords.shape[0]
-    src = torch.clamp(slots.vertex, max=n - 1)
-    x = coords.index_select(0, src)
-    w = torch.where(slots.vertex < n, deg_p1.index_select(0, src), 0.0)
-    f = slot_repulsion_cuda(x, w, slots.tasks, slots.aggs, repel, eps)
-    return f.index_select(0, slots.slot)
 
 
 def sender_csr(g: Graph) -> ES.EdgeCSR:
@@ -375,17 +319,15 @@ def _intra_csr(g: Graph, part: Partition, deg_loc: torch.Tensor,
 @dataclasses.dataclass(frozen=True)
 class MultilevelLayout:
     """One level's tables for the portable refinement, built once on the
-    host and placed on the graph's device: the member tables by size class
-    (``place_members``: with kernel B's slot view on a card), the
-    intra-aggregate CSR
-    and its row sums, the local degrees, the sender CSR of the cut-edge
-    pull and the members-by-aggregate CSR of the epilogue; and the
-    repulsion's work per iteration: ``pairs``, the ordered member pairs
-    sum_a s_a (s_a - 1), ``padded_pairs``, what the tables' [B, S, S]
-    blocks of the CPU path compute, and ``largest``, the largest
-    aggregate."""
+    host and placed on the graph's device: what the repulsion walks
+    (``repulsion_members``: kernel B's slot space on a card, the member
+    tables elsewhere), the intra-aggregate CSR and its row sums, the local
+    degrees, the sender CSR of the cut-edge pull and the
+    members-by-aggregate CSR of the epilogue; and the repulsion's work per
+    iteration: ``pairs``, the ordered member pairs sum_a s_a (s_a - 1),
+    and ``largest``, the largest aggregate."""
 
-    members: tuple | MemberSlots
+    members: tuple | BR.SlotSpace
     intra: ES.EdgeCSR
     intra_rowsum: torch.Tensor
     deg_loc: torch.Tensor
@@ -394,7 +336,6 @@ class MultilevelLayout:
     vertex_to_agg: torch.Tensor
     num_aggs: int
     pairs: int
-    padded_pairs: int
     largest: int
 
 
@@ -402,18 +343,18 @@ def prepare_multilevel(g: Graph, part: Partition,
                        params: MultilevelFAParams) -> MultilevelLayout:
     """The portable refinement's tables of one level (host prep; the local
     degrees are summed on the device by kernel A).  Sub-spans
-    ``ml.members`` (the member tables built and uploaded, on a card with
-    their slot view) and ``ml.intra`` (the local degrees and the intra-aggregate
-    CSR, with the counter ``ml_intra_entries``)."""
+    ``ml.members`` (``repulsion_members``: on a card kernel B's slot space,
+    elsewhere the member tables, built and placed) and ``ml.intra`` (the
+    local degrees and the intra-aggregate CSR, with the counter
+    ``ml_intra_entries``)."""
     part = part.to(g.device)
     with timing.span("ml.intra"):
         deg_loc = local_degrees(g, part, params.use_weights)
         intra, rowsum = _intra_csr(g, part, deg_loc, params)
         timing.count("ml_intra_entries", int(intra.col.numel()))
     with timing.span("ml.members"):
-        tables = build_member_buckets(part)
-        members = place_members(tables, part.n, g.device)
-    sizes = np.concatenate([(t < part.n).sum(axis=1) for t in tables])
+        members = repulsion_members(part, g.device)
+    sizes = part.agg_sizes().cpu().numpy()
     return MultilevelLayout(members=members, intra=intra,
                             intra_rowsum=rowsum, deg_loc=deg_loc,
                             sender_csr=sender_csr(g),
@@ -421,8 +362,6 @@ def prepare_multilevel(g: Graph, part: Partition,
                             vertex_to_agg=part.vertex_to_agg,
                             num_aggs=part.num_aggs,
                             pairs=int(np.sum(sizes * (sizes - 1))),
-                            padded_pairs=sum(t.shape[0] * t.shape[1] ** 2
-                                             for t in tables),
                             largest=int(sizes.max(initial=0)))
 
 
@@ -523,8 +462,7 @@ def force_atlas_multilevel(g: Graph, part: Partition, coords_A, r_A,
     (``prepare_multilevel``, on ``device``) is built here when not
     given.  The sub-span ``ml.loop`` holds the iterations and their card
     work (it ends by waiting on the current stream) and counts the layout's
-    ``ml_pairs``, ``ml_padded_pairs`` (the CPU path's work: on the card no
-    padded pair is computed) and ``ml_largest_aggregate``, and on the card
+    ``ml_pairs`` and ``ml_largest_aggregate``, and on the card
     ``ml_repulsion_launches``, the kernel B launches of its iterations (one
     each); each iteration's repulsion is a sub-span ``ml.repulsion`` inside
     it."""
@@ -546,7 +484,6 @@ def force_atlas_multilevel(g: Graph, part: Partition, coords_A, r_A,
         x = torch.as_tensor(coords0).to(dev, dtype).contiguous()
     with timing.span("ml.loop", iterations=iterations):
         timing.count("ml_pairs", layout.pairs)
-        timing.count("ml_padded_pairs", layout.padded_pairs)
         timing.count("ml_largest_aggregate", layout.largest)
         launched = cuda.LAUNCHES["bucket_repulsion"]
         x = ml_loop(x, layout, pull_vec, params, iterations)

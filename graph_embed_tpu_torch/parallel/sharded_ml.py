@@ -3,13 +3,14 @@
 Counterpart of graph_embed_tpu/parallel/sharded_ml.py (design notes
 there).  Every piece of a refinement iteration is local to the aggregate,
 so one iteration needs no exchange between shards.  Aggregates are
-bucketed into power-of-two size classes by the single-device rule
-(``bucket_size_classes``, sorted by (class, id)) and dealt contiguously to
-the shards within each class: aggregate k of a class of m_c goes to shard
-k // q at rank k % q, q = ceil(m_c / ndev).  Every shard's local slot space
-then has the same structure (the same classes, q aggregates each, ghost
-aggregates where a shard runs out), and the shards are stacked, device
-major, into one slot space that kernels A and B run in one launch each.
+bucketed into power-of-two size classes by the single-device rule and
+dealt contiguously to the shards within each class
+(``ops.bucket_repulsion.slot_space``): aggregate k of a class of m_c goes
+to shard k // q at rank k % q, q = ceil(m_c / ndev).  Every shard's local
+slot space then has the same structure (the same classes, q aggregates
+each, ghost aggregates where a shard runs out), and the shards are
+stacked, device major, into one slot space that kernels A and B run in
+one launch each.
 
 The TPU's per-bucket VMEM/lane planning (``plan_bucket``) and the 128-slot
 rounding of the local space are TPU layout, not carried over: classes sit
@@ -19,7 +20,7 @@ back to back.  What must not depend on the shard count does not:
   each slot's row, in an order fixed by the aggregate alone;
 * draws: the random start is drawn per vertex, and the sampled classes'
   uniforms per aggregate in class order, then dealt like the aggregates
-  (``RefineLayout.sampled_classes``);
+  (``SlotSpace.sampled_classes``);
 * the epilogue's mean is a row-owned segment sum over each aggregate's
   members (``ops/segment.py``), its max norm a max.
 
@@ -61,8 +62,7 @@ class ShardedRefineLayout:
     carrying the id ``num_aggs`` and count 0.  ``members`` sums each
     aggregate's member slots in slot order; ``agg_of_slot`` [n_slots]
     (ghost slots ``num_aggs``).  ``vertices`` are the laid-out vertices
-    (None: every vertex), ``global_slots`` [n] each vertex's slot in the
-    slot space of every shard."""
+    (None: every vertex)."""
 
     ndev: int
     n_slots_local: int
@@ -71,7 +71,6 @@ class ShardedRefineLayout:
     agg_of_slot: torch.Tensor
     shards: range
     vertices: torch.Tensor | None
-    global_slots: torch.Tensor
 
 
 def prepare_refine_sharded(g: Graph, part: Partition,
@@ -85,53 +84,24 @@ def prepare_refine_sharded(g: Graph, part: Partition,
     no bf16 gather."""
     dev = g.device
     shards = range(ndev) if shards is None else shards
+    # one host copy of the aggregate map, for the layout and for here
     v2a = part.vertex_to_agg_numpy()
-    m = part.num_aggs
-    counts = np.bincount(v2a, minlength=m)
-    thr = params.sampled_slots_threshold
-    classes = MT.size_classes(counts)
-    qs = [-(-aggs.size // ndev) for _, aggs in classes]
-    nsl = sum(q * S for (S, _), q in zip(classes, qs))
-
-    slot_start = np.zeros(m, dtype=np.int64)
-    mine = np.zeros(m, dtype=bool)
-    buckets = []
-    for d in range(ndev):
-        base = d * nsl
-        for (S, aggs), q in zip(classes, qs):
-            ids = aggs[d * q: (d + 1) * q]
-            slot_start[ids] = base + np.arange(ids.size) * S
-            if d in shards:
-                mine[ids] = True
-                padded = np.full(q, m, dtype=np.int64)
-                padded[: ids.size] = ids
-                cnt = np.zeros(q, dtype=np.int64)
-                cnt[: ids.size] = counts[ids]
-                buckets.append(MT.Bucket(
-                    base=int(base - shards.start * nsl), m_b=q, S=S,
-                    aggs=torch.from_numpy(padded).to(dev),
-                    counts=torch.from_numpy(cnt).to(dev),
-                    sampled=thr > 0 and S >= thr, u_row=d * q))
-            base += q * S
-    global_slots = MT.vertex_slots(v2a, counts, slot_start)
-    n_slots = len(shards) * nsl
-    vertices = np.flatnonzero(mine[v2a]) if len(shards) < ndev else None
-    layout = MT.slot_layout(g, v2a, counts, params,
-                            slot_start - shards.start * nsl, n_slots,
-                            buckets, vertices=vertices)
+    part = dataclasses.replace(part, host_v2a=v2a)
+    layout = MT.slot_layout(g, part, params, ndev=ndev, shards=shards)
+    m, n_slots = part.num_aggs, layout.n_slots
+    vertex = layout.space.vertex.cpu().numpy()
+    live = np.flatnonzero(vertex < g.n)
     agg_of_slot = np.full(n_slots, m, dtype=np.int64)
-    agg_of_slot[layout.slot_of_vertex.cpu().numpy()] = (
-        v2a if vertices is None else v2a[vertices])
+    agg_of_slot[live] = v2a[vertex[live]]
     # each aggregate's member slots, in slot order (a stable sort by id)
-    live = np.flatnonzero(agg_of_slot < m)
     members, _ = ES.build_csr(agg_of_slot[live], live, None, m, n_slots,
                               device=dev)
     return ShardedRefineLayout(
-        ndev=ndev, n_slots_local=nsl, layout=layout, members=members,
-        agg_of_slot=torch.from_numpy(agg_of_slot).to(dev), shards=shards,
-        vertices=(None if vertices is None
-                  else torch.from_numpy(vertices).to(dev)),
-        global_slots=torch.from_numpy(global_slots).to(dev))
+        ndev=ndev, n_slots_local=n_slots // len(shards), layout=layout,
+        members=members, agg_of_slot=torch.from_numpy(agg_of_slot).to(dev),
+        shards=shards,
+        vertices=(None if len(shards) == ndev
+                  else torch.from_numpy(np.sort(vertex[live])).to(dev)))
 
 
 def _place_into_parents(x, shl: ShardedRefineLayout, coords_A, r_A,
@@ -140,7 +110,7 @@ def _place_into_parents(x, shl: ShardedRefineLayout, coords_A, r_A,
     center each aggregate on its member mean, scale by its max member
     norm (clamped at eps), place into the parent ball; ghosts get 0."""
     layout = shl.layout
-    m = layout.num_aggs
+    m = shl.members.n_rows
     valid = layout.valid_slot[:, None]
     cnt = (shl.members.indptr[1:] - shl.members.indptr[:-1]).to(x.dtype)
     mean = segment.segment_sum(x, shl.members) / torch.clamp(
@@ -230,4 +200,4 @@ def refine_level_sharded(g: Graph, part: Partition, coords_A, r_A, dim: int,
     placed = step(x, pull_slot, coords_A, r_A, gen)
     if mesh.comm is not None:
         placed = mesh.comm.all_gather(placed)
-    return placed[layout.global_slots]
+    return placed[lay.space.slot]

@@ -210,8 +210,7 @@ def load_cache(scale, ef):
 def buckets_of(part, params):
     """Each size class of a level's refinement, as ``prepare_refine``
     lays it out: (S, aggregates, sampled)."""
-    from graph_embed_tpu_torch.forceatlas.multilevel_tiled import (
-        size_classes)
+    from graph_embed_tpu_torch.ops.bucket_repulsion import size_classes
 
     counts = np.bincount(part.vertex_to_agg_numpy(), minlength=part.num_aggs)
     thr = params.sampled_slots_threshold
@@ -295,7 +294,7 @@ def probe_refine0(scale, ef, device):
     synchronize(device)
     log(f"prepare_refine: {time.perf_counter() - t0:.1f}s  "
         f"n_slots={layout.n_slots}")
-    for b in layout.buckets:
+    for b in layout.space.buckets:
         log(f"  bucket S={b.S:<7} m_b={b.m_b:<7} "
             f"kind={'sampled' if b.sampled else 'exact'} "
             f"slots={b.m_b * b.S}")

@@ -184,32 +184,32 @@ def cta_table_256(buckets):
 
 def _bucket_256(lib):
     """Kernel B's wrapper for a library that takes ``cta_table_256``: the
-    table over the buckets of the classes the layout's own table holds
+    table over the buckets of the classes the slot space's own table holds
     (so a table restricted to one class restricts this one too)."""
     import torch
 
     from graph_embed_tpu_torch.ops import cuda
 
-    # by the layout's own table, held so that its id stays its own; built
+    # by the space's own table, held so that its id stays its own; built
     # on the first call (which waits on the card), so timed calls do not
     tables = {}
 
-    def exact_repulsion_cuda(x, layout, repel, eps):
-        key = id(layout.exact_meta)
+    def slot_repulsion_cuda(x, w, space, repel, eps):
+        key = id(space.tasks)
         if key not in tables:
-            classes = set(layout.exact_meta[:, 1].abs().tolist())
-            tables[key] = (layout.exact_meta, torch.from_numpy(cta_table_256(
-                [b for b in layout.buckets if b.S in classes])).to(x.device))
+            classes = set(space.tasks[:, 1].abs().tolist())
+            tables[key] = (space.tasks, torch.from_numpy(cta_table_256(
+                [b for b in space.buckets if b.S in classes])).to(x.device))
         meta = tables[key][1]
         out = torch.empty_like(x)
         rc = lib.ge_bucket_repulsion(
             meta.shape[0], x.shape[1], meta.data_ptr(), x.data_ptr(),
-            layout.w_rep.data_ptr(), out.data_ptr(), float(repel),
-            float(eps), cuda.stream_of(x))
+            w.data_ptr(), out.data_ptr(), float(repel), float(eps),
+            cuda.stream_of(x))
         cuda.check(rc, "bucket_repulsion")
         return out
 
-    return exact_repulsion_cuda
+    return slot_repulsion_cuda
 
 
 def _planless(lib):
@@ -245,7 +245,7 @@ def _planless(lib):
 @contextlib.contextmanager
 def use(lib, takes: dict):
     """Route the port's kernel wrappers to ``lib`` inside the block."""
-    from graph_embed_tpu_torch.forceatlas import multilevel_tiled as MT
+    from graph_embed_tpu_torch.ops import bucket_repulsion as BR
     from graph_embed_tpu_torch.ops import cuda
     from graph_embed_tpu_torch.ops import edge_spmm as ES
     from graph_embed_tpu_torch.parallel import overlap as OV
@@ -257,7 +257,7 @@ def use(lib, takes: dict):
     if not takes["linlog_hubs"]:
         patches.append((ES, "linlog_cuda", _linlog_planless(lib)))
     if takes["bucket_tile"] == 256 != cuda.BUCKET_TILE:
-        patches.append((MT, "exact_repulsion_cuda", _bucket_256(lib)))
+        patches.append((BR, "slot_repulsion_cuda", _bucket_256(lib)))
     if not takes["ring_live"]:
         patches.append((OV, "_ring_launcher", _ring_liveless(lib)))
     saved_lib = cuda._LIB
@@ -363,6 +363,7 @@ def section_b(torch, dev, g, res, this, other) -> None:
     """Kernel B on the level-0 and first Galerkin slot layouts, whole and
     one size class at a time (the table restricted to the class)."""
     from graph_embed_tpu_torch.forceatlas import multilevel_tiled as MT
+    from graph_embed_tpu_torch.ops import bucket_repulsion as BR
     from graph_embed_tpu_torch.utils.params import MultilevelFAParams
 
     params = MultilevelFAParams()
@@ -370,25 +371,28 @@ def section_b(torch, dev, g, res, this, other) -> None:
     for level, graph in ((0, g), (1, res.coarse_graphs[0])):
         layout = MT.prepare_refine(graph.to(dev), res.levels[level].to(dev),
                                    params)
+        w = layout.w_rep
         x = torch.rand((layout.n_slots, 3), generator=gen, device=dev) * 2 - 1
         x = torch.where(layout.valid_slot[:, None], x, torch.zeros_like(x))
-        scale = MT.exact_repulsion_plain(x, layout, params.repel,
-                                         params.epsilon, absolute=True)
-        exact = [b for b in layout.buckets if not b.sampled]
-        # (shape, layout, the buckets its table covers: the other slots are
-        # left unwritten), with per-class counts at level 0
-        tables = [(f"level {level} slots", layout, exact, {})]
+        scale = BR.slot_repulsion_plain(x, w, layout.space, params.repel,
+                                        params.epsilon, absolute=True)
+        exact = [b for b in layout.space.buckets if not b.sampled]
+        # (shape, slot space, the buckets its table covers: the other slots
+        # are left unwritten), with per-class counts at level 0
+        tables = [(f"level {level} slots", layout.space, exact, {})]
         tables += [(f"level {level} class S={b.S}",
-                    CS.class_table(layout, b.S), [b], CS.b_class_counts(b))
+                    CS.class_table(layout.space, b.S), [b],
+                    CS.b_class_counts(b))
                    for b in exact]
-        for shape, lay, mine, counts in tables:
+        for shape, space, mine, counts in tables:
+            # looked up on the module at each call, so ``use`` reroutes it
             compare("bucket_repulsion", shape,
-                    lambda lay=lay, x=x: MT.exact_repulsion_cuda(
-                        x, lay, params.repel, params.epsilon),
+                    lambda space=space, x=x: BR.slot_repulsion_cuda(
+                        x, w, space, params.repel, params.epsilon),
                     [torch.cat([scale[b.slots] for b in mine])], this, other,
                     select=lambda out, mine=mine: torch.cat(
                         [out[b.slots] for b in mine]),
-                    table_rows=int(lay.exact_meta.shape[0]), **counts)
+                    table_rows=int(space.tasks.shape[0]), **counts)
 
 
 def section_c(torch, dev, flat, this, other) -> None:

@@ -1,4 +1,4 @@
-"""Kernel B's task table (``multilevel_tiled._task_table``) and the
+"""Kernel B's task table (``ops.bucket_repulsion._task_table``) and the
 schedule of its warps, on the CPU.
 
 Kernel B (csrc/bucket_repulsion.cu) runs members against members only:
@@ -20,6 +20,7 @@ import torch
 
 from graph_embed_tpu_torch import from_edges
 from graph_embed_tpu_torch.forceatlas import multilevel_tiled as MT
+from graph_embed_tpu_torch.ops import bucket_repulsion as BR
 from graph_embed_tpu_torch.ops import cuda
 from graph_embed_tpu_torch.parallel import sharded_ml as SML
 from graph_embed_tpu_torch.partition.interpolation import Partition
@@ -93,8 +94,8 @@ def test_schedule_covers_exact_slots_once_members_in_order(rng):
     the members of its aggregate, ascending, itself included; the table
     runs the longest tasks first."""
     for name, layout in _layouts(rng):
-        table = layout.exact_meta.numpy()
-        aggs = layout.exact_aggs.numpy()
+        table = layout.space.tasks.numpy()
+        aggs = layout.space.aggs.numpy()
         valid = layout.valid_slot.numpy()
         seen = np.zeros(layout.n_slots, np.int64)
         for slot, partners in task_schedule(table, aggs):
@@ -102,15 +103,15 @@ def test_schedule_covers_exact_slots_once_members_in_order(rng):
             if partners is None:
                 continue
             assert valid[slot], name
-            b = next(b for b in layout.buckets
+            b = next(b for b in layout.space.buckets
                      if b.slots.start <= slot < b.slots.stop)
             a = b.base + (slot - b.base) // b.S * b.S
             want = [j for j in range(a, a + b.S) if valid[j]]
             assert partners == want and slot in partners, name
             assert len(want) >= 2 or b.S > T, name   # lone members: zeros
-        for b in layout.buckets:
+        for b in layout.space.buckets:
             assert np.all(seen[b.slots] == (0 if b.sampled else 1)), name
-        assert any(b.sampled for b in layout.buckets) == (
+        assert any(b.sampled for b in layout.space.buckets) == (
             name == "sampled from 512")
         cost = task_cost(table, aggs)
         assert np.all(cost[:-1] >= cost[1:]), name
@@ -122,10 +123,10 @@ def test_table_rows_are_cut_in_warp_steps(rng):
     first; zeros tasks of T slots from the bucket's base.  Larger classes:
     T rows of one aggregate per task."""
     _, layout = next(_layouts(rng))
-    table = layout.exact_meta.numpy()
-    aggs = layout.exact_aggs.numpy()
+    table = layout.space.tasks.numpy()
+    aggs = layout.space.aggs.numpy()
     valid = layout.valid_slot.numpy()
-    for b in layout.buckets:
+    for b in layout.space.buckets:
         counts = valid[b.slots].reshape(b.m_b, b.S).sum(axis=1)
         if b.S <= T:
             rows = table[table[:, 1] == b.S]
@@ -145,15 +146,15 @@ def test_table_rows_are_cut_in_warp_steps(rng):
 
 
 def test_table_refuses_ghosts_before_members():
-    b = MT.Bucket(base=0, m_b=1, S=8, aggs=torch.zeros(1, dtype=torch.long),
+    b = BR.Bucket(base=0, m_b=1, S=8, aggs=torch.zeros(1, dtype=torch.long),
                   counts=torch.tensor([2]), sampled=False)
     valid = np.array([True, False, True] + [False] * 5)
     with pytest.raises(ValueError, match="members first"):
-        MT._task_table([b], valid)
-    b = MT.Bucket(base=0, m_b=1, S=4, aggs=torch.zeros(1, dtype=torch.long),
+        BR._task_table([b], valid)
+    b = BR.Bucket(base=0, m_b=1, S=4, aggs=torch.zeros(1, dtype=torch.long),
                   counts=torch.tensor([2]), sampled=False)
     with pytest.raises(ValueError, match=">= 8"):
-        MT._task_table([b], np.array([True, True, False, False]))
+        BR._task_table([b], np.array([True, True, False, False]))
 
 
 def _sequential(x3, w3, counts, repel, eps, members_only):
@@ -201,6 +202,6 @@ def test_members_only_keeps_every_sum(rng, S):
     mine = _sequential(x3, w3, counts, repel, eps, members_only=True)
     assert torch.equal(mine, every)
     assert not mine[~member].any()
-    want = MT.bucket_repulsion_plain(x3, w3, repel, eps)
-    scale = MT.bucket_repulsion_plain(x3, w3, repel, eps, absolute=True)
+    want = BR.bucket_repulsion_plain(x3, w3, repel, eps)
+    scale = BR.bucket_repulsion_plain(x3, w3, repel, eps, absolute=True)
     assert torch.all((mine - want).abs() <= 1e-5 * scale)

@@ -19,6 +19,7 @@ from graph_embed_tpu_torch.forceatlas import multilevel as PML
 from graph_embed_tpu_torch.forceatlas import multilevel_tiled as MT
 from graph_embed_tpu_torch.forceatlas import tiled as TL
 from graph_embed_tpu_torch.graph import synth
+from graph_embed_tpu_torch.ops import bucket_repulsion as BR
 from graph_embed_tpu_torch.ops import cuda
 from graph_embed_tpu_torch.ops import edge_spmm as ES
 from graph_embed_tpu_torch.ops import fused_step as FS
@@ -117,19 +118,20 @@ def test_kernel_b_matches_plain(rng, dev, d):
     partners in order with FMAs, the plain version with torch.sum, so each
     slot differs by float32 rounding of its own sum."""
     layout = _layout(rng, dev)
-    assert {b.S for b in layout.buckets} >= {8, 16, 256, 512, 1024}
+    space, w = layout.space, layout.w_rep
+    assert {b.S for b in space.buckets} >= {8, 16, 256, 512, 1024}
     x = torch.rand((layout.n_slots, d), device=dev) * 2 - 1
     x = torch.where(layout.valid_slot[:, None], x, torch.zeros_like(x))
     before = cuda.LAUNCHES["bucket_repulsion"]
-    got = MT.exact_repulsion_cuda(x, layout, REPEL, EPS)
+    got = BR.slot_repulsion_cuda(x, w, space, REPEL, EPS)
     assert cuda.LAUNCHES["bucket_repulsion"] == before + 1
-    want = MT.exact_repulsion_plain(x, layout, REPEL, EPS)
-    scale = MT.exact_repulsion_plain(x, layout, REPEL, EPS, absolute=True)
+    want = BR.slot_repulsion_plain(x, w, space, REPEL, EPS)
+    scale = BR.slot_repulsion_plain(x, w, space, REPEL, EPS, absolute=True)
     torch.cuda.synchronize()
-    for b in layout.buckets:
+    for b in space.buckets:
         _assert_within_scale(got[b.slots], want[b.slots], scale[b.slots])
     assert not got[~layout.valid_slot].any()
-    assert torch.equal(MT.exact_repulsion_cuda(x, layout, REPEL, EPS), got)
+    assert torch.equal(BR.slot_repulsion_cuda(x, w, space, REPEL, EPS), got)
 
 
 @pytest.mark.cuda
@@ -142,7 +144,7 @@ def test_refine_forces_on_card_match_cpu(rng, dev):
     assert layout_cpu.n_slots == layout_dev.n_slots
     # the folded attraction weights are positive, so A |x| sums |terms|
     assert layout_cpu.csr.w is None or bool((layout_cpu.csr.w > 0).all())
-    n, d = layout_cpu.n, 3
+    n, d = layout_cpu.slot_of_vertex.shape[0], 3
     x0 = rng.uniform(-1, 1, (n, d)).astype(np.float32)
     params = MultilevelFAParams()
     outs = []
@@ -155,8 +157,9 @@ def test_refine_forces_on_card_match_cpu(rng, dev):
     x = torch.zeros((layout_cpu.n_slots, d))
     x[layout_cpu.slot_of_vertex] = torch.from_numpy(x0)
     mag = torch.clamp(torch.linalg.norm(x, dim=1), min=params.epsilon)
-    scale = (MT.exact_repulsion_plain(x, layout_cpu, params.repel,
-                                      params.epsilon, absolute=True)
+    scale = (BR.slot_repulsion_plain(x, layout_cpu.w_rep, layout_cpu.space,
+                                     params.repel, params.epsilon,
+                                     absolute=True)
              + params.attract * (ES.spmv_plain(x.abs(), layout_cpu.csr)
                                  + x.abs() * layout_cpu.deg_w[:, None])
              + params.gravity * ((layout_cpu.deg_loc + 1.0)
@@ -241,8 +244,8 @@ def test_sampled_bucket_refines_on_card(rng, dev):
     part = Partition.from_numpy(v2a, m, device=dev)
     params = MultilevelFAParams()
     layout = MT.prepare_refine(g, part, params)
-    assert any(b.sampled for b in layout.buckets)
-    assert any(not b.sampled for b in layout.buckets)
+    assert any(b.sampled for b in layout.space.buckets)
+    assert any(not b.sampled for b in layout.space.buckets)
     coords_A = torch.rand((m, 3), device=dev) * 2 - 1
     r_A = torch.full((m,), 0.05, device=dev)
     before = cuda.LAUNCHES["bucket_repulsion"]
@@ -1026,15 +1029,16 @@ def test_kernel_b_partial_aggregates_match_plain(rng, dev, d, ndev):
     x = torch.rand((layout.n_slots, d), device=dev) * 2 - 1
     x = torch.where(layout.valid_slot[:, None], x, torch.zeros_like(x))
     x[9] = x[8]   # two members of one aggregate coincide: d clamps at eps
+    space, w = layout.space, layout.w_rep
     before = cuda.LAUNCHES["bucket_repulsion"]
-    got = MT.exact_repulsion_cuda(x, layout, REPEL, EPS)
+    got = BR.slot_repulsion_cuda(x, w, space, REPEL, EPS)
     assert cuda.LAUNCHES["bucket_repulsion"] == before + 1
-    want = MT.exact_repulsion_plain(x, layout, REPEL, EPS)
-    scale = MT.exact_repulsion_plain(x, layout, REPEL, EPS, absolute=True)
+    want = BR.slot_repulsion_plain(x, w, space, REPEL, EPS)
+    scale = BR.slot_repulsion_plain(x, w, space, REPEL, EPS, absolute=True)
     torch.cuda.synchronize()
     _assert_within_scale(got, want, scale)
     assert not got[~layout.valid_slot].any()
-    assert torch.equal(MT.exact_repulsion_cuda(x, layout, REPEL, EPS), got)
+    assert torch.equal(BR.slot_repulsion_cuda(x, w, space, REPEL, EPS), got)
 
 
 @pytest.mark.cuda

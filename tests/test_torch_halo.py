@@ -33,7 +33,7 @@ from graph_embed_tpu.utils.params import (ForceAtlasParams,
 import graph_embed_tpu_torch as gp
 from graph_embed_tpu_torch import interop
 from graph_embed_tpu_torch import parallel as PP
-from graph_embed_tpu_torch.forceatlas import multilevel_tiled as MT
+from graph_embed_tpu_torch.ops import bucket_repulsion as BR
 from graph_embed_tpu_torch.parallel import halo as PH
 from graph_embed_tpu_torch.parallel import overlap as POV
 from graph_embed_tpu_torch.parallel import sharded_ml as PSM
@@ -320,8 +320,8 @@ def test_sharded_layout_deals_aggregates(rng):
     assert int(shl.layout.valid_slot.sum()) == g.n
     np.testing.assert_array_equal(shl.agg_of_slot.numpy()[sov], v2a)
     assert not shl.layout.deg_loc[~shl.layout.valid_slot].any()
-    classes = MT.size_classes(np.bincount(v2a, minlength=m))
-    buckets = shl.layout.buckets
+    classes = BR.size_classes(np.bincount(v2a, minlength=m))
+    buckets = shl.layout.space.buckets
     assert len(buckets) == 8 * len(classes)
     for i, b in enumerate(buckets):
         shard, (S, aggs) = i // len(classes), classes[i % len(classes)]
@@ -330,10 +330,10 @@ def test_sharded_layout_deals_aggregates(rng):
         assert lo <= b.base and b.base + b.m_b * S <= lo + shl.n_slots_local
     params = MultilevelFAParams(sampled_slots_threshold=64)
     sampled = PSM.prepare_refine_sharded(g, part, params, 8).layout
-    assert [c for c, _ in sampled.sampled_classes] == [
+    assert [c for c, _ in sampled.space.sampled_classes] == [
         aggs.size for S, aggs in classes if S >= 64]
-    assert sampled.sampled_classes and all(
-        len(bis) == 8 for _, bis in sampled.sampled_classes)
+    assert sampled.space.sampled_classes and all(
+        len(bis) == 8 for _, bis in sampled.space.sampled_classes)
     outs = [PSM.refine_level_sharded(
         g, part, torch.from_numpy(coords_A), torch.from_numpy(r_A), 3,
         mesh=make_mesh(ndev, device=CPU), iterations=3, params=params,

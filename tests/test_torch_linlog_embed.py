@@ -17,6 +17,7 @@ import graph_embed_tpu_torch as gp
 from graph_embed_tpu_torch import interop
 from graph_embed_tpu_torch.embed.driver import build_galerkin_chain
 from graph_embed_tpu_torch.forceatlas import multilevel as pml
+from graph_embed_tpu_torch.ops import bucket_repulsion as BR
 from portbench.generators import community_rmat as C
 from portbench.program import program_graph
 from portbench.reference import embed as E
@@ -206,25 +207,25 @@ def test_portable_route_spans_and_counters(embedded):
                    for s in reps)
         sizes = np.bincount(part.vertex_to_agg_numpy(),
                             minlength=part.num_aggs)
-        tables = pml.build_member_buckets(part)
         assert loop["counts"] == {
             "ml_pairs": int((sizes * (sizes - 1)).sum()),
-            "ml_padded_pairs": sum(t.shape[0] * t.shape[1] ** 2
-                                   for t in tables),
             "ml_largest_aggregate": int(sizes.max())}
     base, = _subs(records, "base.loop")
     assert base["counts"]["base_attraction_entries"] > 0
 
 
 def test_pair_counts_of_a_known_partition():
-    """Aggregates of 3, 1 and 5 members: 3*2 + 0 + 5*4 ordered pairs, the
-    tables' blocks 8*8 (sizes up to 8) per aggregate."""
+    """Aggregates of 3, 1 and 5 members: 3*2 + 0 + 5*4 ordered pairs, and
+    in kernel B's slot space one class of 8 slots per aggregate (sizes up
+    to 8), each aggregate's members first in vertex order."""
     v2a = np.array([0, 2, 0, 1, 2, 2, 0, 2, 2], np.int32)
     part = interop.partition(v2a, 3)
     g = gp.synth.ring_of_cliques(3, 3)
     layout = pml.prepare_multilevel(g, part, gp.MultilevelFAParams())
-    assert (layout.pairs, layout.padded_pairs, layout.largest) == (
-        26, 3 * 64, 5)
+    assert (layout.pairs, layout.largest) == (26, 5)
+    space = BR.slot_space(v2a, 3)
+    assert [(b.S, b.m_b) for b in space.buckets] == [(8, 3)]
+    assert space.slot.tolist() == [0, 16, 1, 8, 17, 18, 2, 19, 20]
 
 
 def _dense_buckets(part, pad):

@@ -1,7 +1,10 @@
-"""Kernel B's slot view of the portable refinement's member tables
-(``forceatlas.multilevel.MemberSlots``): its layout on the CPU, its
-replay by kernel B's plain version against the tables' own sum, the
-``ml.loop`` counters, and on a CUDA card the kernel path of
+"""Kernel B's slot space (``ops.bucket_repulsion.slot_space``) as each of
+its callers builds it: the slot refinement (``prepare_refine``), the
+portable refinement (``prepare_multilevel`` on a card, through
+``repulsion_members``) and the sharded refinement
+(``prepare_refine_sharded`` on 1 and 3 shards).  Its layout on the CPU,
+its replay by kernel B's plain version against the member tables' own
+sum, the ``ml.loop`` counters, and on a CUDA card the kernel path of
 ``aggregate_repulsion``.  The file imports neither JAX nor the JAX
 package, so the GPU host runs it without them:
 
@@ -16,19 +19,23 @@ import graph_embed_tpu_torch as gp
 from graph_embed_tpu_torch import from_edges, interop
 from graph_embed_tpu_torch.forceatlas import multilevel as PML
 from graph_embed_tpu_torch.forceatlas import multilevel_tiled as MT
+from graph_embed_tpu_torch.ops import bucket_repulsion as BR
 from graph_embed_tpu_torch.ops import cuda
+from graph_embed_tpu_torch.parallel import sharded_ml as SML
 from graph_embed_tpu_torch.utils import timing
 
 REPEL, EPS = 1.3, 1e-5
 LARGEST = 2927
 KINDS = ["mixed", "small", "singletons"]
+CALLERS = ["prepare_refine", "prepare_multilevel", "sharded1", "sharded3"]
 
 
 def _sizes(kind: str) -> np.ndarray:
     """Aggregate sizes of a partition: ``mixed`` holds one-member
     aggregates, the 8 and 16 classes and one of ``LARGEST`` members (its
-    table 2,928 wide, no power of two); ``small`` reaches 40 (a 40-wide
-    last table); ``singletons`` only one-member aggregates."""
+    table 2,928 wide, no power of two; its class 4,096); ``small`` reaches
+    40 (a 40-wide last table); ``singletons`` only one-member
+    aggregates."""
     rng = np.random.default_rng(KINDS.index(kind))
     if kind == "mixed":
         return np.concatenate([np.ones(60, np.int64),
@@ -48,69 +55,111 @@ def _partition(kind: str):
     return v2a.astype(np.int32), sizes.size
 
 
-def _view(kind: str):
+def _space(caller: str, kind: str, monkeypatch):
+    """(v2a, m, tables, the slot space ``caller`` builds for kernel B)
+    of ``_partition(kind)``, on the CPU.  ``prepare_multilevel`` builds its
+    space only for a card (``repulsion_members``); here it stays on the
+    host, where the card's is placed from."""
     v2a, m = _partition(kind)
+    n = v2a.size
     part = interop.partition(v2a, m)
-    tables = PML.build_member_buckets(part)
-    return v2a, m, tables, PML.member_slots(tables, v2a.size, "cpu")
+    g = from_edges(np.arange(n - 1), np.arange(1, n), None, n=n,
+                   symmetrize=True)
+    params = gp.MultilevelFAParams(sampled_slots_threshold=0)
+    if caller == "prepare_refine":
+        space = MT.prepare_refine(g, part, params).space
+    elif caller == "prepare_multilevel":
+        monkeypatch.setattr(BR.SlotSpace, "to", lambda self, device: self)
+        space = PML.repulsion_members(part, "cuda")
+    else:
+        space = SML.prepare_refine_sharded(
+            g, part, params, int(caller[-1])).layout.space
+    return v2a, m, PML.build_member_buckets(part), space
+
+
+def _rows(space):
+    """Each bucket's slots as [m_b, S] vertex rows, with its aggregate
+    ids."""
+    vertex = space.vertex.numpy()
+    for b in space.buckets:
+        yield b, vertex[b.slots].reshape(b.m_b, b.S), b.aggs.numpy()
 
 
 @pytest.mark.parametrize("kind", KINDS)
-def test_every_vertex_has_one_slot(kind):
-    """The tables' rows back to back, then one row of 8 ghosts; each
-    vertex in exactly one slot, which ``slot`` names."""
-    v2a, _, _, view = _view(kind)
+@pytest.mark.parametrize("caller", CALLERS)
+def test_every_vertex_has_one_slot(caller, kind, monkeypatch):
+    """The buckets back to back, no slot outside them; each vertex in
+    exactly one slot, which ``slot`` names, at its aggregate's ``start``
+    plus its rank among the members."""
+    v2a, m, _, space = _space(caller, kind, monkeypatch)
     n = v2a.size
-    vertex = view.vertex.numpy()
-    base = sum(len(t) * w for t, w in zip(view.tables, view.widths))
-    assert vertex.size == base + 8 and np.all(vertex[base:] == n)
-    members = vertex[vertex < n]
-    assert np.array_equal(np.sort(members), np.arange(n))
+    vertex = space.vertex.numpy()
+    assert vertex.size == sum(b.m_b * b.S for b in space.buckets)
+    assert np.array_equal(np.sort(vertex[vertex < n]), np.arange(n))
     assert np.all(vertex[vertex >= n] == n)
-    assert np.array_equal(vertex[view.slot.numpy()], np.arange(n))
+    slot = space.slot.numpy()
+    assert np.array_equal(vertex[slot], np.arange(n))
+    start = space.start.numpy()
+    assert np.all(slot >= start[v2a])
+    assert np.all(slot < start[v2a] + np.bincount(v2a, minlength=m)[v2a])
 
 
 def test_a_vertex_in_no_table_reads_a_ghost():
-    """Tables that leave a vertex out (a row cut to ghosts) send it to the
-    closing ghost row."""
+    """Tables that leave a vertex out (a row cut to ghosts): the vertex
+    becomes an aggregate of its own and gets force 0, as on the CPU path;
+    each row is an aggregate, members first."""
     tables = [np.array([[0, 1, 4, 4], [4, 4, 4, 4]], np.int32),
               np.array([[2]], np.int32)]
-    view = PML.member_slots(tables, 4, "cpu")
-    assert view.widths == (8, 8)
-    assert view.slot.tolist() == [0, 1, 16, 24]
-    assert view.vertex[24:].tolist() == [4] * 8
+    space = PML._table_space(tables, 4)
+    assert [b.S for b in space.buckets] == [8]
+    assert space.slot.tolist() == [0, 1, 16, 24]
+    assert space.vertex[24:].tolist() == [3] + [4] * 7
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.uniform(-1, 1, (4, 3)))
+    w = torch.from_numpy(rng.uniform(1, 4, 4))
+    got = PML.aggregate_repulsion(x, space, w, REPEL, EPS)
+    want = PML.aggregate_repulsion(x, tables, w, REPEL, EPS, exact=True)
+    assert not got[2:].any() and not want[2:].any()
+    assert torch.allclose(got, want, rtol=1e-12, atol=0)
+    assert got[0].abs().min() > 0
 
 
 @pytest.mark.parametrize("kind", KINDS)
-def test_rows_hold_members_before_ghosts(kind):
-    """Each row of the view is one table row: its members in the table's
-    order, then ghosts."""
-    v2a, _, tables, view = _view(kind)
+@pytest.mark.parametrize("caller", CALLERS)
+def test_rows_hold_members_before_ghosts(caller, kind, monkeypatch):
+    """Each row of a bucket is one aggregate: its members in increasing
+    vertex id, then ghosts; a ghost aggregate's row is all ghosts."""
+    v2a, m, _, space = _space(caller, kind, monkeypatch)
     n = v2a.size
-    base = 0
-    for t, w in zip(tables, view.widths):
-        rows = view.vertex[base: base + t.shape[0] * w].numpy().reshape(-1, w)
-        base += t.shape[0] * w
-        member = rows < n
-        counts = member.sum(axis=1)
-        assert np.array_equal(member, np.arange(w) < counts[:, None])
-        assert np.array_equal(rows[:, : t.shape[1]], t)
-        # every vertex of a row is of one aggregate
-        for row, c in zip(rows, counts):
-            assert np.unique(v2a[row[:c]]).size <= 1
+    members = [np.flatnonzero(v2a == a) for a in range(m)]
+    for b, rows, aggs in _rows(space):
+        for row, a in zip(rows, aggs):
+            want = members[a] if a < m else np.zeros(0, np.int64)
+            assert np.array_equal(row[: want.size], want)
+            assert np.all(row[want.size:] == n)
 
 
 @pytest.mark.parametrize("kind", KINDS)
-def test_view_widths_are_power_of_two_classes(kind):
-    """Each table pads to its power-of-two class (>= 8) in the view only;
-    the last table of ``mixed`` is 2,928 wide and its class 4,096."""
-    _, _, tables, view = _view(kind)
-    for t, w, kept in zip(tables, view.widths, view.tables):
-        assert w >= max(8, t.shape[1]) and w & (w - 1) == 0
-        assert w < 2 * max(t.shape[1], 8)
-        assert tuple(kept.shape) == t.shape
+@pytest.mark.parametrize("caller", CALLERS)
+def test_view_widths_are_power_of_two_classes(caller, kind, monkeypatch):
+    """Every bucket is a power-of-two class (>= 8) that its aggregates need
+    and no smaller one would hold; on one shard the classes are the member
+    tables', each table padded to its class (the last table of ``mixed``
+    is 2,928 wide and its class 4,096)."""
+    v2a, m, tables, space = _space(caller, kind, monkeypatch)
+    counts = np.append(np.bincount(v2a, minlength=m), 0)
+    for b, _, aggs in _rows(space):
+        c = counts[aggs]
+        assert b.S >= 8 and b.S & (b.S - 1) == 0
+        assert np.all(c <= b.S) and np.all(2 * np.maximum(c[c > 0], 8) > b.S)
+        assert np.array_equal(b.counts.numpy(), c)
+    widths = sorted({b.S for b in space.buckets})
+    assert widths == [max(8, 1 << (t.shape[1] - 1).bit_length())
+                      for t in tables]
+    if caller != "sharded3":
+        assert [b.m_b for b in space.buckets] == [len(t) for t in tables]
     if kind == "mixed":
-        assert (tables[-1].shape[1], view.widths[-1]) == (2928, 4096)
+        assert (tables[-1].shape[1], widths[-1]) == (2928, 4096)
 
 
 def _partners(tasks: np.ndarray, aggs: np.ndarray) -> int:
@@ -134,10 +183,11 @@ def _partners(tasks: np.ndarray, aggs: np.ndarray) -> int:
 
 
 @pytest.mark.parametrize("kind", KINDS)
-def test_task_partners_sum_to_the_layout_pairs(kind):
+@pytest.mark.parametrize("caller", CALLERS)
+def test_task_partners_sum_to_the_layout_pairs(caller, kind, monkeypatch):
     """The task table's partner counts sum to ``MultilevelLayout.pairs``,
     the ordered member pairs: kernel B computes no padded pair."""
-    v2a, m, _, _ = _view(kind)
+    v2a, m, _, space = _space(caller, kind, monkeypatch)
     n = v2a.size
     rng = np.random.default_rng(3)
     s, r = rng.integers(0, n, 4 * n), rng.integers(0, n, 4 * n)
@@ -145,20 +195,38 @@ def test_task_partners_sum_to_the_layout_pairs(kind):
     g = from_edges(s[keep], r[keep], None, n=n, symmetrize=True)
     layout = PML.prepare_multilevel(g, interop.partition(v2a, m),
                                     gp.MultilevelFAParams())
-    view = PML.member_slots(layout.members, n, "cpu")
-    assert _partners(view.tasks.numpy(), view.aggs.numpy()) == layout.pairs
+    assert _partners(space.tasks.numpy(), space.aggs.numpy()) == layout.pairs
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_portable_and_slot_layouts_share_one_slot_space(kind, monkeypatch):
+    """A level's portable layout (as a card builds it) and its slot layout
+    give kernel B the same slot space: every slot, task and bucket."""
+    _, _, _, portable = _space("prepare_multilevel", kind, monkeypatch)
+    _, _, _, tiled = _space("prepare_refine", kind, monkeypatch)
+    for name in ("start", "slot", "vertex", "tasks", "aggs"):
+        assert torch.equal(getattr(portable, name), getattr(tiled, name))
+    assert portable.first == tiled.first == 0
+    assert portable.sampled_classes == tiled.sampled_classes == ()
+    assert len(portable.buckets) == len(tiled.buckets)
+    for a, b in zip(portable.buckets, tiled.buckets):
+        assert (a.base, a.m_b, a.S, a.sampled) == (b.base, b.m_b, b.S,
+                                                   b.sampled)
+        assert torch.equal(a.aggs, b.aggs)
+        assert torch.equal(a.counts, b.counts)
 
 
 @pytest.mark.parametrize("kind", KINDS)
 def test_cpu_layouts_keep_the_plain_tables(kind):
-    """Off the card no slot view is built: ``prepare_multilevel`` and
+    """Off the card no slot space is built: ``prepare_multilevel`` and
     ``farfield.Groups.build`` hold the member tables as int64 tensors,
     bit for bit ``build_member_buckets``'s."""
     from graph_embed_tpu_torch.forceatlas import farfield
 
-    v2a, m, tables, _ = _view(kind)
+    v2a, m = _partition(kind)
     n = v2a.size
     part = interop.partition(v2a, m)
+    tables = PML.build_member_buckets(part)
     g = from_edges(np.arange(n - 1), np.arange(1, n), None, n=n,
                    symmetrize=True)
     layout = PML.prepare_multilevel(g, part, gp.MultilevelFAParams())
@@ -172,38 +240,33 @@ def test_cpu_layouts_keep_the_plain_tables(kind):
 
 
 @pytest.mark.parametrize("kind", KINDS)
-def test_slot_replay_equals_the_tables_sum(kind):
-    """Kernel B's plain version over the slot view, gathered back by each
-    vertex's slot, is ``aggregate_repulsion(..., exact=True)`` over
-    the tables in float64, within 1e-12 of each element's sum of
-    |terms|."""
-    v2a, _, tables, view = _view(kind)
+@pytest.mark.parametrize("caller", CALLERS)
+def test_slot_replay_equals_the_tables_sum(caller, kind, monkeypatch):
+    """Kernel B's plain version over the slot space, gathered back by each
+    vertex's slot (``vertex_repulsion`` on CPU tensors), is
+    ``aggregate_repulsion(..., exact=True)`` over the tables in float64,
+    within 1e-12 of each element's sum of |terms|; ghost slots get 0."""
+    v2a, _, tables, space = _space(caller, kind, monkeypatch)
     n = v2a.size
     rng = np.random.default_rng(11)
     x = torch.from_numpy(rng.uniform(-1, 1, (n, 3)))
     w = torch.from_numpy(rng.uniform(1, 4, n))
-    xs = torch.cat([x, x.new_zeros((1, 3))])[view.vertex]
-    ws = torch.cat([w, w.new_zeros(1)])[view.vertex]
-    slots = torch.zeros_like(xs)
-    base = 0
-    for t, width in zip(tables, view.widths):
-        sl = slice(base, base + t.shape[0] * width)
-        base = sl.stop
-        slots[sl] = MT.bucket_repulsion_plain(
-            xs[sl].reshape(-1, width, 3), ws[sl].reshape(-1, width), REPEL,
-            EPS).reshape(-1, 3)
-    got = slots[view.slot]
+    got = BR.vertex_repulsion(x, w, space, REPEL, EPS)
+    src = torch.clamp(space.vertex, max=n - 1)
+    slots = BR.slot_repulsion(x[src], torch.where(space.vertex < n, w[src],
+                                                  0.0), space, REPEL, EPS)
+    assert torch.equal(slots[space.slot], got)
+    assert not slots[space.vertex == n].any()
     want = PML.aggregate_repulsion(x, tables, w, REPEL, EPS, exact=True)
     scale = PML.aggregate_repulsion(x, tables, w, REPEL, EPS, exact=True,
                                     absolute=True)
-    assert not slots[view.vertex == n].any()
     assert bool(((got - want).abs() <= 1e-12 * scale).all())
 
 
 def test_members_must_come_first():
     """A row with a ghost before a member is no kernel B layout."""
     with pytest.raises(ValueError, match="members first"):
-        PML.member_slots([np.array([[0, 3, 1, 3]], np.int32)], 3, "cpu")
+        PML._table_space([np.array([[0, 3, 1, 3]], np.int32)], 3)
 
 
 def _level(rng, kind: str, device):
@@ -232,14 +295,12 @@ def _traced_refine(g, part, cA, rA, iterations, device):
 
 def test_ml_loop_counts_on_the_cpu():
     """On the CPU ``ml.loop`` counts no kernel B launch, and its pair
-    counters are the tables' hand counts."""
+    counters are hand counts of the partition."""
     g, part, cA, rA = _level(np.random.default_rng(5), "small", "cpu")
     loop = _traced_refine(g, part, cA, rA, 3, "cpu")
     sizes = np.bincount(part.vertex_to_agg_numpy(), minlength=part.num_aggs)
-    tables = PML.build_member_buckets(part)
     assert loop["counts"] == {
         "ml_pairs": int((sizes * (sizes - 1)).sum()),
-        "ml_padded_pairs": sum(t.shape[0] * t.shape[1] ** 2 for t in tables),
         "ml_largest_aggregate": int(sizes.max())}
 
 
@@ -256,10 +317,12 @@ def dev():
 def test_kernel_path_within_rounding_of_float64(dev, kind, repulsion):
     """Kernel B on the card against the float64 sum of the same float32
     inputs, for both repulsion names: each element within 256 x 2^-24 of
-    its sum of |terms|; one launch, repeatable bitwise, and the prepared
-    view and the plain tables give the same bits."""
-    v2a, _, tables, _ = _view(kind)
+    its sum of |terms|; one launch, repeatable bitwise, and the layout's
+    slot space and the plain tables give the same bits."""
+    v2a, m = _partition(kind)
     n = v2a.size
+    part = interop.partition(v2a, m)
+    tables = PML.build_member_buckets(part)
     rng = np.random.default_rng(13)
     x = torch.from_numpy(rng.uniform(-1, 1, (n, 3)).astype(np.float32))
     w = torch.from_numpy(rng.uniform(1, 4, n).astype(np.float32))
@@ -267,15 +330,16 @@ def test_kernel_path_within_rounding_of_float64(dev, kind, repulsion):
     want = PML.aggregate_repulsion(x64, tables, w64, REPEL, EPS, exact=True)
     scale = PML.aggregate_repulsion(x64, tables, w64, REPEL, EPS, exact=True,
                                     absolute=True)
-    view = PML.member_slots(tables, n, dev)
+    space = PML.repulsion_members(part, dev)
+    assert isinstance(space, BR.SlotSpace) and space.vertex.is_cuda
     xd, wd = x.to(dev), w.to(dev)
     exact = repulsion == "exact"
     before = cuda.LAUNCHES["bucket_repulsion"]
-    got = PML.aggregate_repulsion(xd, view, wd, REPEL, EPS, exact=exact)
+    got = PML.aggregate_repulsion(xd, space, wd, REPEL, EPS, exact=exact)
     assert cuda.LAUNCHES["bucket_repulsion"] == before + 1
     err = (got.cpu().double() - want).abs()
     assert bool((err <= 256 * 2.0**-24 * scale).all()), float(err.max())
-    assert torch.equal(PML.aggregate_repulsion(xd, view, wd, REPEL, EPS,
+    assert torch.equal(PML.aggregate_repulsion(xd, space, wd, REPEL, EPS,
                                                exact=exact), got)
     assert torch.equal(PML.aggregate_repulsion(xd, tables, wd, REPEL, EPS,
                                                exact=exact), got)
@@ -284,15 +348,15 @@ def test_kernel_path_within_rounding_of_float64(dev, kind, repulsion):
 @pytest.mark.cuda
 def test_kernel_path_raises_for_what_it_does_not_take(dev):
     """No fallback: float64 on the card, and the rounding scales, raise."""
-    v2a, _, tables, _ = _view("small")
+    v2a, m = _partition("small")
     n = v2a.size
-    view = PML.member_slots(tables, n, dev)
+    space = PML.repulsion_members(interop.partition(v2a, m), dev)
     x = torch.rand((n, 3), device=dev, dtype=torch.float64)
     w = torch.ones(n, device=dev, dtype=torch.float64)
     with pytest.raises(ValueError):
-        PML.aggregate_repulsion(x, view, w, REPEL, EPS)
+        PML.aggregate_repulsion(x, space, w, REPEL, EPS)
     with pytest.raises(ValueError):
-        PML.aggregate_repulsion(x.float(), view, w.float(), REPEL, EPS,
+        PML.aggregate_repulsion(x.float(), space, w.float(), REPEL, EPS,
                                 absolute=True)
 
 
@@ -305,3 +369,17 @@ def test_ml_loop_counts_one_launch_per_iteration(dev):
     loop = _traced_refine(g, part, cA, rA, 7, dev)
     assert loop["counts"]["ml_repulsion_launches"] == 7
     assert cuda.LAUNCHES["bucket_repulsion"] - before == 7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", KINDS)
+def test_card_portable_and_slot_layouts_share_one_slot_space(dev, kind):
+    """On the card, ``prepare_multilevel``'s slot space is
+    ``prepare_refine``'s, slot for slot and task for task."""
+    g, part, _, _ = _level(np.random.default_rng(5), kind, dev)
+    portable = PML.prepare_multilevel(g, part, gp.MultilevelFAParams())
+    tiled = MT.prepare_refine(
+        g, part, gp.MultilevelFAParams(sampled_slots_threshold=0))
+    for name in ("start", "slot", "vertex", "tasks", "aggs"):
+        assert torch.equal(getattr(portable.members, name),
+                           getattr(tiled.space, name))

@@ -21,6 +21,7 @@ from graph_embed_tpu.utils.params import MultilevelFAParams
 from graph_embed_tpu_torch import interop
 from graph_embed_tpu_torch.forceatlas import multilevel as pml
 from graph_embed_tpu_torch.forceatlas import multilevel_tiled as pmlt
+from graph_embed_tpu_torch.ops import bucket_repulsion as BR
 
 D_PAD = jmlt.ES.D_PAD
 REPEL, EPS = 1.3, 1e-5
@@ -88,9 +89,9 @@ def test_plain_bucket_repulsion_matches_pallas_bodies(rng, S):
     dim = 3 if S != 8 else 2
     m_b = max(8, 1024 // S)   # whole grid steps for every body's tiling
     x3, x, w = _bucket(rng, m_b, S, dim)
-    got = pmlt.bucket_repulsion_plain(torch.from_numpy(x),
-                                      torch.from_numpy(w), REPEL,
-                                      EPS).numpy()
+    got = BR.bucket_repulsion_plain(torch.from_numpy(x),
+                                    torch.from_numpy(w), REPEL,
+                                    EPS).numpy()
 
     def check(out):
         want = np.moveaxis(np.asarray(out).reshape(D_PAD, m_b, S)[:dim],
@@ -115,8 +116,8 @@ def test_absolute_sums_bound_each_force(rng, S):
     m_b = max(8, 1024 // S)
     _, x, w = _bucket(rng, m_b, S, 3)
     xt, wt = torch.from_numpy(x), torch.from_numpy(w)
-    f = pmlt.bucket_repulsion_plain(xt, wt, REPEL, EPS).abs()
-    scale = pmlt.bucket_repulsion_plain(xt, wt, REPEL, EPS, absolute=True)
+    f = BR.bucket_repulsion_plain(xt, wt, REPEL, EPS).abs()
+    scale = BR.bucket_repulsion_plain(xt, wt, REPEL, EPS, absolute=True)
     assert bool((f <= scale * (1 + 1e-6)).all())
     partnered = (w > 0) & ((w > 0).sum(axis=1, keepdims=True) >= 2)
     sel = torch.from_numpy(partnered)
@@ -225,7 +226,8 @@ def test_refine_forces_match_jax(rng, weighted):
                                          interpret=True))[sj]
 
     lp = pmlt.prepare_refine(g, p, params)
-    assert len(lp.buckets) >= 2 and not any(b.sampled for b in lp.buckets)
+    assert len(lp.space.buckets) >= 2 and not any(
+        b.sampled for b in lp.space.buckets)
     assert (lp.csr.w is None) == (not weighted)
     sp = lp.slot_of_vertex
     x = torch.zeros((lp.n_slots, d))
@@ -276,7 +278,7 @@ def test_refine_level_sampled_bucket_packs(rng):
     p = interop.partition(v2a, m)
     params = MultilevelFAParams(sampled_slots_threshold=1024)
     layout = pmlt.prepare_refine(g, p, params)
-    assert any(b.sampled and b.S >= 1024 for b in layout.buckets)
+    assert any(b.sampled and b.S >= 1024 for b in layout.space.buckets)
     coords_A = rng.uniform(-1, 1, size=(m, 2)).astype(np.float32)
     r_A = rng.uniform(0.5, 1.0, size=m).astype(np.float32)
     out = pmlt.refine_level_tiled(g, p, torch.from_numpy(coords_A),

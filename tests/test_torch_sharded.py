@@ -453,7 +453,9 @@ def test_refine_step_is_the_level(rng):
         csr=lay.sender_csr).float()
     x = torch.zeros((lay.n_slots, 2))
     x[lay.slot_of_vertex] = torch.rand((g.n, 2), generator=gen) * 2.0 - 1.0
-    got = step(x, pull, cA, rA, gen)[lay.slot_of_vertex]
+    # every shard laid out: kernel B's slot space names the same slots
+    assert torch.equal(lay.space.slot, lay.slot_of_vertex)
+    got = step(x, pull, cA, rA, gen)[lay.space.slot]
     assert torch.equal(got, want)
     with pytest.raises(ValueError, match="shards"):
         PSM.make_refine_sharded_step(make_mesh(2, device=CPU), shl, 2,
