@@ -135,7 +135,8 @@ def cmd_embedder(argv) -> int:
     print(" ".join(str(s) for s in res.level_sizes))
 
     # the native backend emits the Galerkin chain with the hierarchy;
-    # build_galerkin_chain covers the device backend
+    # otherwise build_galerkin_chain builds it where g lives (a graph read
+    # from a file keeps its host COO, so on the host)
     graphs = ([g] + res.coarse_graphs if res.coarse_graphs is not None
               else build_galerkin_chain(g, res.levels))
     print("starting embedding: ")

@@ -323,22 +323,37 @@ def _halo_base_case(g: Graph, dim: int, mesh, params: ForceAtlasParams,
 
 
 def build_galerkin_chain(g: Graph, parts: list[Partition], *,
-                         backend: str = "host") -> list[Graph]:
+                         backend: str | None = None) -> list[Graph]:
     """[A_0 ... A_k] by repeated P^T A P (examples/embed.cpp:95-98;
-    driver.py:331-356 of the JAX package).  ``backend="host"`` builds each
-    level on the host and keeps its host COO (what the embed's layout prep
-    reads); ``backend="device"`` keeps the chain on ``g``'s device
-    (``ops.spgemm.coarsen_graph_device``)."""
+    driver.py:331-356 of the JAX package), built where ``g`` lives.
+
+    A graph with a host COO (read from a file, made on the host) is
+    coarsened on the host (``ops.spgemm.coarsen_graph``: duplicates summed
+    in float64, then rounded to the graph's dtype).  A graph without one
+    (drawn or kept on its device) is coarsened on its device
+    (``coarsen_graph_device``: one stable sort and one kernel A launch a
+    level, ``ops.spgemm.run_sums``), and each coarse level then gets its
+    host COO by one copy of the finished level (``graph_to_host_bytes``
+    on a card), which the radii and the layout prep read.  Integer
+    weights (unit weights and every level above them) are summed exactly
+    on either side, so the two chains are equal there; other weights
+    agree to the graph's rounding.  The counter ``galerkin_card_levels``
+    reads the levels built on the device.  ``backend`` ("host" or
+    "device") overrides the choice."""
+    if backend is None:
+        backend = "host" if g.host_coo is not None else "device"
+    if backend not in ("host", "device"):
+        raise ValueError(f"unknown backend {backend!r}")
     graphs = [g]
     for p in parts:
         if backend == "device":
-            graphs.append(coarsen_graph_device(graphs[-1], p.vertex_to_agg,
-                                               p.num_aggs))
-        elif backend == "host":
+            a = coarsen_graph_device(graphs[-1], p.vertex_to_agg, p.num_aggs)
+            graphs.append(dataclasses.replace(a, host_coo=a.to_coo_numpy()))
+        else:
             graphs.append(coarsen_graph(graphs[-1], p.vertex_to_agg_numpy(),
                                         p.num_aggs))
-        else:
-            raise ValueError(f"unknown backend {backend!r}")
+    timing.count("galerkin_card_levels",
+                 len(parts) if backend == "device" else 0)
     return graphs
 
 
@@ -349,9 +364,9 @@ def embed_graph(g: Graph, dim: int = 3, *, device="cuda",
     examples/embed.cpp:93-100 pipeline as one call).  The hierarchy takes
     the native coarsener, which emits the chain, when ``g`` has a host COO,
     and the device coarsener otherwise; the chain then comes from
-    ``build_galerkin_chain``, as in the reference.  ``metrics`` is the
-    current logger for the call, as in ``embed``.  Returns (coords on
-    ``device``, HierarchyResult)."""
+    ``build_galerkin_chain``, which builds it where ``g`` lives.
+    ``metrics`` is the current logger for the call, as in ``embed``.
+    Returns (coords on ``device``, HierarchyResult)."""
     device = resolve(device)
     metrics = metrics or MetricsLogger()
     with timing.use(metrics):

@@ -1070,6 +1070,54 @@ def test_device_coarsener_and_modularity_card_equal_cpu(rng, dev, weighted):
     assert abs(q_card - q_cpu) < 1e-6
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("integer", [False, True])
+def test_galerkin_run_sums_card(rng, dev, integer):
+    """The Galerkin chain's duplicate sums on the card, one kernel A
+    launch: integer weights whose runs sum past 2^24 exactly as float64
+    sums rounded once (what the host chain computes), other weights
+    within 1e-6 of them."""
+    from graph_embed_tpu_torch.ops import spgemm
+
+    lens = rng.integers(1, 3000, 300)
+    lens[[3, 150]] = (150_000, 40)
+    indptr = np.concatenate([[0], np.cumsum(lens)])
+    e = int(indptr[-1])
+    w = (rng.integers(1, 600, e).astype(np.float32) if integer
+         else rng.uniform(0.5, 2.0, e).astype(np.float32))
+    want = np.add.reduceat(w.astype(np.float64), indptr[:-1])
+    cuda.LAUNCHES.clear()
+    got = spgemm.run_sums(torch.from_numpy(w).to(dev),
+                          torch.from_numpy(indptr).to(dev))
+    assert cuda.LAUNCHES["edge_spmm[unit]"] == 1
+    if integer:
+        assert want.max() > 1 << 24
+        assert torch.equal(got.cpu(), torch.from_numpy(want.astype(
+            np.float32)))
+    else:
+        np.testing.assert_allclose(got.cpu().numpy(), want, rtol=1e-6)
+
+
+@pytest.mark.cuda
+def test_galerkin_chain_card_equals_host_chain(dev):
+    """build_galerkin_chain of a card-only graph on the card: each level
+    torch.equal to the host chain of the same graph, with a host COO of
+    the host chain's arrays and dtypes."""
+    g = synth.community_rmat(16, 14, 8, seed=4)
+    res = gp.partition_hierarchy(g, 0.1, backend="native")
+    host = gp.build_galerkin_chain(g, res.levels)
+    card = gp.build_galerkin_chain(
+        dataclasses.replace(g.to(dev), host_coo=None),
+        [p.to(dev) for p in res.levels])
+    for a, b in zip(card[1:], host[1:]):
+        assert a.weights.is_cuda
+        for x, y in ((a.indptr, b.indptr), (a.senders, b.senders),
+                     (a.receivers, b.receivers), (a.weights, b.weights)):
+            assert torch.equal(x.cpu(), y)
+        for x, y in zip(a.host_coo, b.host_coo):
+            assert x.dtype == y.dtype and np.array_equal(x, y)
+
+
 def _shard_graph(s, r, n, rng, *, unit):
     """A symmetric graph on the edges (s, r): unit weights, duplicates
     included, or random ones."""

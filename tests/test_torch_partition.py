@@ -8,9 +8,11 @@ coarsener computes every gain, alpha and duplicate sum as the native code
 does; the running Q, a float64 sum of the same gains in another order,
 within 1e-9.  Modularity: within 1e-10 of the JAX package and of the numpy
 oracle on float64 graphs (the sums differ only in order).  The device
-Galerkin products sum duplicates in input order, as the JAX package's
-sorted segment sum does: float64 weights within 1e-12 relative, the
-structure exact.
+Galerkin products sum integer weights exactly and other weights, on the
+CPU, in input order, as the JAX package's sorted segment sum does:
+float64 weights within 1e-12 relative, the structure exact; the chain
+built on a graph's device equals the host chain (integer weights) or
+lies within 1e-6 of it (float32 weights).
 """
 
 import dataclasses
@@ -32,6 +34,7 @@ from graph_embed_tpu_torch.ops import segment
 from graph_embed_tpu_torch.ops import spgemm as pspgemm
 from graph_embed_tpu_torch.partition import coarsen as pcoarsen
 from graph_embed_tpu_torch.partition import hierarchy as phier
+from graph_embed_tpu_torch.utils import timing
 from graph_embed_tpu_torch.utils.params import PartitionParams as PParams
 
 import oracle
@@ -122,27 +125,80 @@ def test_galerkin_device_matches_jax_and_host(rng):
     np.testing.assert_allclose(nw.numpy(), np.asarray(jw)[:e], rtol=1e-12)
 
 
+def _chain_with_counts(g, levels, **kw):
+    """build_galerkin_chain inside a ``galerkin`` span: (chain, the span's
+    counters)."""
+    metrics = gp.MetricsLogger()
+    with timing.use(metrics), metrics.span("galerkin"):
+        chain = gp.build_galerkin_chain(g, levels, **kw)
+    return chain, metrics.records[-1].get("counts", {})
+
+
 @pytest.mark.parametrize("weighted", [False, True])
 def test_galerkin_chain_device_equals_native_emitted(rng, weighted):
-    """build_galerkin_chain(backend="device") on a graph without a host
-    COO against the native coarsener's emitted chain: the same structure,
-    unit-weight sums equal (integers), weighted ones within 1e-6."""
+    """build_galerkin_chain on a graph without a host COO, which builds
+    the chain on its device by default, against the native coarsener's
+    emitted chain and the host chain: the same structure, unit-weight sums
+    equal (integers), weighted ones within 1e-6; each coarse level carries
+    a host COO equal to its tensors, with the host chain's dtypes."""
     gj = random_graph(rng, 400, avg_deg=6, weighted=weighted,
                       dtype="float32")
     g = _port(gj)
     res = gp.partition_hierarchy(g, 0.25, backend="native", emit_graphs=True)
-    chain = gp.build_galerkin_chain(_card_only(g), res.levels,
-                                    backend="device")
+    chain, counts = _chain_with_counts(_card_only(g), res.levels)
+    forced = gp.build_galerkin_chain(_card_only(g), res.levels,
+                                     backend="device")
     host = gp.build_galerkin_chain(g, res.levels)
-    for a, b, c in zip(chain[1:], res.coarse_graphs, host[1:]):
-        assert torch.equal(a.indptr, b.indptr)
-        assert torch.equal(a.receivers, b.receivers)
-        assert torch.equal(a.receivers, c.receivers)
-        if weighted:
-            np.testing.assert_allclose(a.weights.numpy(), b.weights.numpy(),
-                                       rtol=1e-6)
-        else:
-            assert torch.equal(a.weights, b.weights)
+    assert counts == {"galerkin_card_levels": len(res.levels)}
+    assert len(chain) == len(host) == len(res.levels) + 1
+    for a, b, c, d in zip(chain[1:], res.coarse_graphs, host[1:],
+                          forced[1:]):
+        for x in (b, c, d):
+            assert torch.equal(a.indptr, x.indptr)
+            assert torch.equal(a.receivers, x.receivers)
+        assert torch.equal(a.weights, d.weights)
+        for want in (b.weights, c.weights):
+            if weighted:
+                np.testing.assert_allclose(a.weights.numpy(), want.numpy(),
+                                           rtol=1e-6)
+            else:
+                assert torch.equal(a.weights, want)
+        assert a.host_coo is not None
+        for got, t, h in zip(a.host_coo, (a.senders, a.receivers,
+                                          a.weights), c.host_coo):
+            assert got.dtype == h.dtype
+            np.testing.assert_array_equal(got, t.numpy())
+            if weighted and got.dtype.kind == "f":
+                np.testing.assert_allclose(got, h, rtol=1e-6)
+            else:
+                np.testing.assert_array_equal(got, h)
+
+
+@pytest.mark.parametrize("card_only", [False, True])
+def test_galerkin_chain_routes_by_host_coo(monkeypatch, card_only):
+    """build_galerkin_chain chooses its side from its input alone: a graph
+    with a host COO is coarsened on the host (the device coarsener is never
+    called), one without on its device (the host coarsener is never
+    called); ``galerkin_card_levels`` reads the levels built on the
+    device, 0 on the host."""
+    from graph_embed_tpu_torch.embed import driver as D
+
+    g = gp.synth.mesh3d(5)
+    res = gp.partition_hierarchy(g, 0.1, backend="native")
+
+    def refuse(*a, **k):
+        raise AssertionError("the other side's coarsener was called")
+
+    monkeypatch.setattr(D, "coarsen_graph" if card_only
+                        else "coarsen_graph_device", refuse)
+    chain, counts = _chain_with_counts(_card_only(g) if card_only else g,
+                                       res.levels)
+    assert len(res.levels) >= 2
+    assert counts == {"galerkin_card_levels":
+                      len(res.levels) if card_only else 0}
+    assert all(a.host_coo is not None for a in chain[1:])
+    with pytest.raises(ValueError, match="backend"):
+        gp.build_galerkin_chain(g, res.levels, backend="gpu")
 
 
 def test_edge_hash_matches_jax(rng):
@@ -202,6 +258,31 @@ def test_sequential_sum_is_a_sequential_loop(rng):
         for x in v[indptr[i]:indptr[i + 1]]:
             want[i] = np.float32(want[i] + x)
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("integer", [False, True])
+def test_galerkin_run_sums(rng, integer):
+    """The Galerkin chain's duplicate sums (``run_sums``): integer weights
+    whose runs sum past 2^24, where a float32 sum in input order rounds
+    away from the float64 one, come out as the float64 sums rounded once;
+    other weights as the sequential float32 loop (the plain version's
+    order on the CPU)."""
+    lens = rng.integers(1, 300, 200)
+    lens[3] = 50_000
+    indptr = np.concatenate([[0], np.cumsum(lens)])
+    e = int(indptr[-1])
+    w = (rng.integers(1, 800, e).astype(np.float32) if integer
+         else rng.uniform(0, 1, e).astype(np.float32))
+    got = pspgemm.run_sums(torch.from_numpy(w), torch.from_numpy(indptr))
+    seq = segment.sequential_sum(torch.from_numpy(w),
+                                 torch.from_numpy(indptr))
+    if integer:
+        want = np.add.reduceat(w.astype(np.float64), indptr[:-1])
+        assert want.max() > 1 << 24
+        np.testing.assert_array_equal(got.numpy(), want.astype(np.float32))
+        assert not torch.equal(got, seq)
+    else:
+        assert torch.equal(got, seq)
 
 
 CASES = {
@@ -311,4 +392,35 @@ def test_embed_graph_without_host_coo():
     assert res.coarse_graphs is None and res_n.coarse_graphs is not None
     assert res.level_sizes == res_n.level_sizes
     assert coords.shape == (g.n, 3) and bool(torch.isfinite(coords).all())
+    assert torch.equal(coords, want)
+
+
+@pytest.mark.parametrize("linlog", [False, True])
+def test_embed_graph_card_chain_equals_host_chain(monkeypatch, linlog):
+    """embed_graph of a card-only unit-weight community graph (the
+    benchmark's LinLog graph in small, drawn by its generator with no host
+    COO: the portable route under LinLog,
+    the slot route without) gives the same coordinates, bit for bit,
+    whether build_galerkin_chain builds the chain on the graph's device,
+    as it does by default, or is forced onto the host."""
+    from graph_embed_tpu_torch.embed import driver as D
+    from portbench.generators import community_rmat as C
+    from portbench.program import program_graph
+
+    g = program_graph(C.build(dict(scale=12, communities=8, edge_factor=6,
+                                   a=0.57, b=0.19, c=0.19, inter_frac=0.05),
+                              5, "cpu"))
+    kw = dict(device=CPU, seed=3, base_iterations=150, refine_iterations=8)
+    if linlog:
+        kw.update(base_params=gp.ForceAtlasParams(linlog=True),
+                  refine_params=gp.MultilevelFAParams(linlog=True))
+    metrics = gp.MetricsLogger()
+    coords, res = gp.embed_graph(g, 3, metrics=metrics, **kw)
+    (gal,) = [r for r in metrics.records if r["phase"] == "galerkin"]
+    assert gal["counts"]["galerkin_card_levels"] == len(res.levels) >= 2
+    real = D.build_galerkin_chain
+    monkeypatch.setattr(D, "build_galerkin_chain",
+                        lambda g, parts: real(g, parts, backend="host"))
+    want, res_h = gp.embed_graph(g, 3, **kw)
+    assert res_h.level_sizes == res.level_sizes
     assert torch.equal(coords, want)

@@ -318,21 +318,23 @@ def test_card_base_loop_holds_its_kernel_a_launches(dev, card_mesh):
 @pytest.mark.cuda
 def test_card_graph_to_host_bytes_hand_count(dev, card_mesh):
     """A card-only graph's copies to the host, counted: level 0's COO
-    (int64 senders and receivers, float32 weights) in the Galerkin chain
-    and in level 0's slot layout; each level's aggregate map (int64) in
-    the chain and in its layout prep, and the maps of levels 1 to k-1
-    again as the radii's grandparents."""
+    (int64 senders and receivers, float32 weights) in level 0's slot
+    layout; each coarse level's COO once, as the Galerkin chain built on
+    the card hands it its host COO; each level's aggregate map (int64) in
+    its layout prep, and the maps of levels 1 to k-1 again as the radii's
+    grandparents."""
     g = dataclasses.replace(card_mesh, host_coo=None)
     metrics = gp.MetricsLogger()
     _, res = gp.embed_graph(g, 3, device=dev, base_iterations=50,
                             refine_iterations=5, metrics=metrics)
     n = res.level_sizes
     k = len(res.levels)
-    want = (2 * 20 * g.num_edges + 8 * 2 * sum(n[:k])
-            + 8 * sum(n[1:k]))
+    entries = [a.num_edges for a in gp.build_galerkin_chain(g, res.levels)]
+    want = 20 * sum(entries) + 8 * sum(n[:k]) + 8 * sum(n[1:k])
     assert counted(metrics.records)[COUNTER] == want
     assert [r["phase"] for r in metrics.records][:2] == ["partition",
                                                         "galerkin"]
+    assert metrics.records[1]["counts"]["galerkin_card_levels"] == k
 
 
 @pytest.mark.cuda
