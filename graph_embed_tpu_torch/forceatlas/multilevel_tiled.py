@@ -66,6 +66,9 @@ class RefineLayout:
     sender_csr: ES.EdgeCSR        # the level's stored entries by sender
     space: BR.SlotSpace           # kernel B's slots, buckets and tasks
     n_slots: int
+    sampled_aggs: int             # aggregates of the sampled classes
+    sampled_members: int          # their members
+    exact_pairs: int              # sum s_a (s_a - 1) of kernel B's ones
 
 
 def _reference_bucket(S: int, m_b: int) -> tuple[int, int]:
@@ -164,6 +167,14 @@ def slot_layout(g: Graph, part: Partition, params: MultilevelFAParams, *,
                                   ES.truncate_bf16(fw[keep]), n_slots,
                                   device=dev, bf16_gather=paired)
 
+    sampled_aggs = sampled_members = exact_pairs = 0
+    for b in space.buckets:
+        c = b.counts.numpy()
+        if b.sampled:
+            sampled_aggs += int(np.count_nonzero(c))
+            sampled_members += int(c.sum())
+        else:
+            exact_pairs += int((c * (c - 1)).sum())
     deg_loc = np.zeros(n_slots, np.float32)
     deg_loc[slot_of_vertex] = deg_np
     w_rep = np.where(valid, deg_loc + 1.0, 0.0).astype(np.float32)
@@ -173,7 +184,8 @@ def slot_layout(g: Graph, part: Partition, params: MultilevelFAParams, *,
         deg_loc=torch.from_numpy(deg_loc).to(dev),
         w_rep=torch.from_numpy(w_rep).to(dev),
         csr=csr, deg_w=deg_w, sender_csr=sender_csr(g),
-        space=space.to(dev), n_slots=n_slots)
+        space=space.to(dev), n_slots=n_slots, sampled_aggs=sampled_aggs,
+        sampled_members=sampled_members, exact_pairs=exact_pairs)
 
 
 def prepare_refine(g: Graph, part: Partition,
@@ -216,26 +228,31 @@ def bucket_repulsion(x, layout: RefineLayout, repel: float, eps: float, *,
                      ) -> torch.Tensor:
     """[n_slots, d] within-aggregate repulsion in slot space: kernel B
     (CUDA) or its plain version (CPU) on the exact buckets, the sampled
-    estimator on the rest, with uniforms drawn from ``generator``."""
+    estimator on the rest, with uniforms drawn from ``generator``, one
+    [m_c, num_samples] draw per sampled class, smallest first; the
+    estimator runs inside the sub-span ``slot.sampled``."""
     space = layout.space
     out = BR.slot_repulsion(x, layout.w_rep, space, repel, eps)
+    if not space.sampled_classes:
+        return out
+    if generator is None:
+        raise ValueError("sampled buckets need a generator")
     d = x.shape[1]
-    for m_c, bis in space.sampled_classes:
-        if generator is None:
-            raise ValueError("sampled buckets need a generator")
-        u = torch.rand((m_c, num_samples), generator=generator,
-                       dtype=x.dtype, device=x.device)
-        for bi in bis:
-            b = space.buckets[bi]
-            ub = u[b.u_row: b.u_row + b.m_b]
-            if ub.shape[0] < b.m_b:
-                ub = torch.cat([ub, ub.new_zeros((b.m_b - ub.shape[0],
-                                                  num_samples))])
-            sl = b.slots
-            out[sl] = bucket_repulsion_sampled(
-                x[sl].reshape(b.m_b, b.S, d),
-                layout.w_rep[sl].reshape(b.m_b, b.S), b.counts, ub, repel,
-                eps).reshape(-1, d)
+    with timing.span("slot.sampled"):
+        for m_c, bis in space.sampled_classes:
+            u = torch.rand((m_c, num_samples), generator=generator,
+                           dtype=x.dtype, device=x.device)
+            for bi in bis:
+                b = space.buckets[bi]
+                ub = u[b.u_row: b.u_row + b.m_b]
+                if ub.shape[0] < b.m_b:
+                    ub = torch.cat([ub, ub.new_zeros((b.m_b - ub.shape[0],
+                                                      num_samples))])
+                sl = b.slots
+                out[sl] = bucket_repulsion_sampled(
+                    x[sl].reshape(b.m_b, b.S, d),
+                    layout.w_rep[sl].reshape(b.m_b, b.S), b.counts, ub,
+                    repel, eps).reshape(-1, d)
     return out
 
 
@@ -290,7 +307,11 @@ def refine_loop(x, layout: RefineLayout, pull_slot,
                 params: MultilevelFAParams, iterations: int,
                 generator: torch.Generator | None = None) -> torch.Tensor:
     """``iterations`` refinement steps in slot space; returns the slot
-    coordinates before the epilogue."""
+    coordinates before the epilogue.  Counts, on the current logger's
+    phase: ``slot_sampled_buckets`` (the sampled classes' aggregates),
+    ``slot_sampled_pairs`` (their members times the samples) and
+    ``slot_pairs`` (the ordered member pairs kernel B walks), both summed
+    over the iterations; all from the layout's host counts."""
     eps = params.epsilon
     deg_p1 = layout.deg_loc + 1.0
     valid = layout.valid_slot[:, None]
@@ -302,6 +323,10 @@ def refine_loop(x, layout: RefineLayout, pull_slot,
                              swing_clamp_eps=eps)
         x = torch.where(valid, new, x)
         fprev = f
+    timing.count("slot_sampled_buckets", layout.sampled_aggs)
+    timing.count("slot_sampled_pairs", layout.sampled_members
+                 * params.num_negative_samples * iterations)
+    timing.count("slot_pairs", layout.exact_pairs * iterations)
     return x
 
 
